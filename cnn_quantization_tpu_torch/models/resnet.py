@@ -1,0 +1,212 @@
+"""ResNet family, simulation path (NCHW in channels_last memory).
+
+Port of ``cnn_quantization_tpu/models/resnet.py`` without the int8/packed
+serving paths (ROADMAP Queue 1 items 5-6).  Module and parameter names follow
+torchvision (``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight``), and
+site ids replicate the reference's construction-order numbering: downsample
+convs are numbered before the convs of a stage's first block.  BN is folded
+into the convs for this family (convs carry biases, no BN modules); the
+before-ReLU half-range marks (utils/mark_relu.py) are baked into the sites.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from torch import nn
+
+from ..engine.context import Site, TapContext
+from .layers import QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool, SiteNamer, relu
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    planes: int
+    stride: int
+    in_planes: int
+    bottleneck: bool
+    fold_bn: bool
+    has_downsample: bool
+    ds_sites: tuple  # (conv_site, bn_site) or ()
+    conv_sites: tuple  # ((conv_site, bn_site), ...) per conv in the block
+    groups: int = 1       # ResNeXt cardinality (torchvision Bottleneck)
+    base_width: int = 64  # WideResNet width_per_group
+
+    @property
+    def out_planes(self) -> int:
+        return self.planes * (4 if self.bottleneck else 1)
+
+
+def _downsample(s: BlockSpec):
+    dc, db = s.ds_sites
+    mods = [QConv(s.in_planes, s.out_planes, 1, s.stride, 0, use_bias=s.fold_bn, site=dc)]
+    if not s.fold_bn:
+        mods.append(QBatchNorm(s.out_planes, site=db))
+    return nn.ModuleList(mods)
+
+
+def _run(mods, x, ctx):
+    for m in mods:
+        x = m(x, ctx)
+    return x
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, spec: BlockSpec):
+        super().__init__()
+        s = self.spec = spec
+        (c1, b1), (c2, b2) = s.conv_sites
+        # torchvision's module order (each BN right after its conv), which
+        # BN folding of a checkpoint relies on
+        self.conv1 = QConv(s.in_planes, s.planes, 3, s.stride, 1, use_bias=s.fold_bn, site=c1)
+        if not s.fold_bn:
+            self.bn1 = QBatchNorm(s.planes, site=b1)
+        self.conv2 = QConv(s.planes, s.planes, 3, 1, 1, use_bias=s.fold_bn, site=c2)
+        if not s.fold_bn:
+            self.bn2 = QBatchNorm(s.planes, site=b2)
+        if s.has_downsample:
+            self.downsample = _downsample(s)
+
+    def forward(self, x, ctx: TapContext):
+        fold = self.spec.fold_bn
+        out = self.conv1(x, ctx)
+        if not fold:
+            out = self.bn1(out, ctx)
+        out = self.conv2(relu(out), ctx)
+        if not fold:
+            out = self.bn2(out, ctx)
+        identity = _run(self.downsample, x, ctx) if self.spec.has_downsample else x
+        return relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, spec: BlockSpec):
+        super().__init__()
+        s = self.spec = spec
+        width = int(s.planes * (s.base_width / 64.0)) * s.groups
+        (c1, b1), (c2, b2), (c3, b3) = s.conv_sites
+        fold = s.fold_bn
+        self.conv1 = QConv(s.in_planes, width, 1, 1, 0, use_bias=fold, site=c1)
+        if not fold:
+            self.bn1 = QBatchNorm(width, site=b1)
+        self.conv2 = QConv(width, width, 3, s.stride, 1, groups=s.groups, use_bias=fold, site=c2)
+        if not fold:
+            self.bn2 = QBatchNorm(width, site=b2)
+        self.conv3 = QConv(width, s.out_planes, 1, 1, 0, use_bias=fold, site=c3)
+        if not fold:
+            self.bn3 = QBatchNorm(s.out_planes, site=b3)
+        if s.has_downsample:
+            self.downsample = _downsample(s)
+
+    def forward(self, x, ctx: TapContext):
+        fold = self.spec.fold_bn
+        out = self.conv1(x, ctx)
+        if not fold:
+            out = self.bn1(out, ctx)
+        out = self.conv2(relu(out), ctx)
+        if not fold:
+            out = self.bn2(out, ctx)
+        out = self.conv3(relu(out), ctx)
+        if not fold:
+            out = self.bn3(out, ctx)
+        identity = _run(self.downsample, x, ctx) if self.spec.has_downsample else x
+        return relu(out + identity)
+
+
+class ResNet(nn.Module):
+    def __init__(self, stem_sites: tuple, stage_specs: tuple, avgpool_site: Site,
+                 fc_site: Site, fold_bn: bool = True, num_classes: int = 1000):
+        super().__init__()
+        conv_site, bn_site, mp_site = stem_sites
+        self.fold_bn = fold_bn
+        self.conv1 = QConv(3, 64, 7, 2, 3, use_bias=fold_bn, site=conv_site)
+        if not fold_bn:
+            self.bn1 = QBatchNorm(64, site=bn_site)
+        self.maxpool = QMaxPool(3, 2, 1, site=mp_site)
+        self.stages = len(stage_specs)
+        for li, stage in enumerate(stage_specs):
+            block = Bottleneck if stage[0].bottleneck else BasicBlock
+            setattr(self, f'layer{li + 1}', nn.ModuleList(block(sp) for sp in stage))
+        self.avgpool = QAvgPool(None, 1, site=avgpool_site)
+        self.fc = QLinear(stage_specs[-1][-1].out_planes, num_classes, site=fc_site)
+
+    def forward(self, x, ctx: TapContext):
+        """``x``: NCHW float32 (channels_last in memory) -> float32 logits."""
+        x = self.conv1(x, ctx)
+        if not self.fold_bn:
+            x = self.bn1(x, ctx)
+        x = self.maxpool(relu(x), ctx)
+        for li in range(self.stages):
+            x = _run(getattr(self, f'layer{li + 1}'), x, ctx)
+        x = self.avgpool(x, ctx)
+        if x.shape[2:] != (1, 1):
+            # the JAX model flattens NHWC (h, w, c); NCHW flattens (c, h, w),
+            # the same order only for a 1x1 map
+            raise ValueError(f'ResNet head expects a square input (pooled map '
+                             f'{tuple(x.shape[2:])})')
+        x = self.fc(x.flatten(1), ctx)
+        return x.float()
+
+
+_LAYER_CFG = {
+    # arch: (block kind, stage depths, groups, width_per_group)
+    'resnet18': ('basic', (2, 2, 2, 2), 1, 64),
+    'resnet34': ('basic', (3, 4, 6, 3), 1, 64),
+    'resnet50': ('bottleneck', (3, 4, 6, 3), 1, 64),
+    'resnet101': ('bottleneck', (3, 4, 23, 3), 1, 64),
+    'resnet152': ('bottleneck', (3, 8, 36, 3), 1, 64),
+    'resnext50_32x4d': ('bottleneck', (3, 4, 6, 3), 32, 4),
+    'resnext101_32x8d': ('bottleneck', (3, 4, 23, 3), 32, 8),
+    'wide_resnet50_2': ('bottleneck', (3, 4, 6, 3), 1, 128),
+    'wide_resnet101_2': ('bottleneck', (3, 4, 23, 3), 1, 128),
+}
+
+
+def build_resnet(arch: str, fold_bn: bool = True, num_classes: int = 1000,
+                 mark_relu: bool | None = None) -> ResNet:
+    """A ResNet with reference-compatible site numbering (torchvision +
+    reference construction order): stem conv/bn first; per stage the
+    downsample conv/bn before block 0's convs; before-ReLU half-range marks
+    (utils/mark_relu.py:4-29) only when ``'resnet' in arch``."""
+    kind, depths, groups, base_width = _LAYER_CFG[arch]
+    bottleneck = kind == 'bottleneck'
+    expansion = 4 if bottleneck else 1
+    if mark_relu is None:
+        mark_relu = 'resnet' in arch
+    hr = mark_relu
+    namer = SiteNamer()
+
+    stem = (namer.conv(half_range=hr), namer.bn(half_range=hr), namer.maxpool())
+
+    in_planes = 64
+    stages = []
+    for si, depth in enumerate(depths):
+        planes = 64 * (2 ** si)
+        stride = 1 if si == 0 else 2
+        blocks = []
+        for bi in range(depth):
+            blk_stride = stride if bi == 0 else 1
+            has_ds = bi == 0 and (blk_stride != 1 or in_planes != planes * expansion)
+            ds_sites = (namer.conv(), namer.bn()) if has_ds else ()
+            if bottleneck:
+                conv_sites = (
+                    (namer.conv(half_range=hr), namer.bn(half_range=hr)),
+                    (namer.conv(half_range=hr), namer.bn(half_range=hr)),
+                    (namer.conv(), namer.bn()),
+                )
+            else:
+                conv_sites = (
+                    (namer.conv(half_range=hr), namer.bn(half_range=hr)),
+                    (namer.conv(), namer.bn()),
+                )
+            blocks.append(BlockSpec(
+                planes=planes, stride=blk_stride, in_planes=in_planes,
+                bottleneck=bottleneck, fold_bn=fold_bn, has_downsample=has_ds,
+                ds_sites=ds_sites, conv_sites=conv_sites,
+                groups=groups, base_width=base_width))
+            in_planes = planes * expansion
+        stages.append(tuple(blocks))
+
+    return ResNet(stem_sites=stem, stage_specs=tuple(stages),
+                  avgpool_site=namer.avgpool(), fc_site=namer.linear(classifier=True),
+                  fold_bn=fold_bn, num_classes=num_classes)

@@ -1,0 +1,60 @@
+"""Weight bridge: the JAX package's parameter tree -> the port's state dict.
+
+The inverse of the naming in ``cnn_quantization_tpu/utils/torch_import.py``
+(``_flax_path``, :89-102): a numeric path segment merged into its parent
+(``layer1_0``, ``downsample_0``) is split back out (``layer1.0``,
+``downsample.0``); HWIO conv kernels become OIHW, ``[in, out]`` linear kernels
+``[out, in]``; BN leaves (scale/bias/mean/var) take torchvision's names.  With
+it both packages compute on identical weights.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_LEAF_NAMES = {'bias': 'bias', 'scale': 'weight', 'mean': 'running_mean',
+               'var': 'running_var'}
+
+
+def _torch_segment(seg: str) -> str:
+    """'layer1_0' -> 'layer1.0'; 'conv1' -> 'conv1'."""
+    m = re.fullmatch(r'(.+?)((?:_\d+)+)', seg)
+    if m is None:
+        return seg
+    return '.'.join([m.group(1)] + m.group(2).split('_')[1:])
+
+
+def _walk(tree: Mapping[str, Any], path: tuple[str, ...]):
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, Mapping)}
+    if leaves:
+        yield path, leaves
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _walk(v, path + (k,))
+
+
+def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Flax params (nested dicts of arrays) -> {torch name: float32 tensor}."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaves in _walk(params, ()):
+        prefix = '.'.join(_torch_segment(seg) for seg in path)
+        for name, value in leaves.items():
+            v = np.asarray(value, np.float32)
+            if name == 'kernel':
+                if v.ndim == 4:
+                    v = v.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                elif v.ndim == 2:
+                    v = v.T  # [in, out] -> [out, in]
+                else:
+                    raise ValueError(f'{prefix}: unexpected {v.ndim}-D kernel')
+                key = 'weight'
+            elif name in _LEAF_NAMES:
+                key = _LEAF_NAMES[name]
+            else:
+                raise ValueError(f'{prefix}: no torch counterpart for leaf {name!r}')
+            out[f'{prefix}.{key}'] = torch.tensor(v)  # a contiguous copy
+    return out
