@@ -15,6 +15,10 @@ This slice runs the simulation path of the README's ResNet commands:
   python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -b 512 \\
       -pcq_w -pcq_a --qtype int4 -qw int4 -c laplace -baa -baw -bcw -sm use
 
+  # true-int8 serving: prepared int8 weights, frozen activation scales
+  python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -b 64 \\
+      --qtype int8 -qw int8 --serving_int8 [--serving_cal aciq] [--serving_s2d_stem]
+
 plus ``--device`` (the card unless ``cpu``), ``--input_size``, ``--subset``
 and ``--seed``.  Data is synthetic (``data/synthetic.py``).  The parser keeps
 every flag of the JAX CLI; each flag outside this slice exits with a message
@@ -37,10 +41,6 @@ _UNPORTED = {
     'print_freq': _LATER_CLI,
     'dtype': _LATER_CLI,
     'q_off': _LATER_CLI,
-    'serving_int8': 'Queue 1 item 5 (true-int8 serving)',
-    'serving_cal': 'Queue 1 item 5 (true-int8 serving)',
-    'serving_percentile': 'Queue 1 item 5 (true-int8 serving)',
-    'serving_s2d_stem': 'Queue 1 item 5 (true-int8 serving)',
     'serving_packed': 'Queue 1 item 6 (W4A4 packed serving)',
     'serving_packed_stages': 'Queue 1 item 6 (W4A4 packed serving)',
     'stochastic': _LATER_CLI,
@@ -86,6 +86,17 @@ def build_parser():
                    help='override the input crop size (default 224)')
     p.add_argument('--qtype', default=None, help='data type: int[N]')
     p.add_argument('--qweight', '-qw', default='int8')
+    p.add_argument('--serving_int8', '-si8', action='store_true',
+                   help='true-integer deployment path: int8 convs and GEMMs with '
+                        'frozen activation scales (bit widths from --qtype/--qweight, '
+                        'clamped to the int8 grid)')
+    p.add_argument('--serving_cal', default='max', choices=('max', 'percentile', 'aciq'),
+                   help='serving scale calibration: abs-max, |x| percentile, or '
+                        'ACIQ-Laplace optimal clip')
+    p.add_argument('--serving_percentile', default=99.99, type=float,
+                   help='percentile for --serving_cal percentile (any value, used exactly)')
+    p.add_argument('--serving_s2d_stem', action='store_true',
+                   help='space-to-depth int8 stem rewrite (opt-in)')
     p.add_argument('--shuffle', '-sh', action='store_true',
                    help='shuffle the evaluation images (seeded)')
     p.add_argument('--clipping', '-c', default='no',
@@ -107,10 +118,6 @@ def build_parser():
             (('--print-freq', '-p'), dict(type=int)),
             (('--dtype',), {}),
             (('--q_off',), dict(action='store_true')),
-            (('--serving_int8', '-si8'), dict(action='store_true')),
-            (('--serving_cal',), {}),
-            (('--serving_percentile',), dict(type=float)),
-            (('--serving_s2d_stem',), dict(action='store_true')),
             (('--serving_packed',), dict(action='store_true')),
             (('--serving_packed_stages',), {}),
             (('--stochastic', '-s'), dict(action='store_true')),
@@ -191,6 +198,13 @@ def synthetic_loader(args, size: int):
     return [(images[i:i + bs], labels[i:i + bs]) for i in range(0, len(images), bs)]
 
 
+def _s2d_stem_applied(params_s) -> bool:
+    """True if ``prepare_serving_params`` space-to-depth transformed the stem
+    kernel (an int8 [O, 12, 4, 4] weight exists in the tree)."""
+    return any(getattr(v, 'ndim', 0) == 4 and tuple(v.shape[1:]) == (12, 4, 4)
+               for v in params_s.values())
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _reject_unported(args)
@@ -236,9 +250,23 @@ def main(argv=None):
             print(f'Froze qparams for {len(qparams)} sites')
 
     params_q = engine.quantize_params(params)
-    res = evaluate(engine, params_q if policy.qtype else params, loader,
-                   stats=stats, quantized=policy.qtype is not None,
-                   subset=args.subset, verbose=True, qparams=qparams)
+    if args.serving_int8:
+        print(f'=> serving-int8: calibrating frozen activation scales ({args.serving_cal})')
+        # the s2d stem is opt-in and needs an even input size
+        params_s = engine.prepare_serving_params(
+            params_q, s2d_stem=args.serving_s2d_stem and size % 2 == 0)
+        if args.serving_s2d_stem and not _s2d_stem_applied(params_s):
+            why = 'odd input size' if size % 2 else 'stem is not a BN-folded 7x7x3 conv'
+            print(f'=> note: --serving_s2d_stem requested but not applied ({why}); '
+                  'stem runs as the float conv')
+        scales = engine.freeze_serving_scales(params_s, loader, mode=args.serving_cal,
+                                              percentile=args.serving_percentile)
+        res = evaluate(engine, params_s, loader, stats=stats, quantized='serving_int8',
+                       act_scales=scales, subset=args.subset, verbose=True)
+    else:
+        res = evaluate(engine, params_q if policy.qtype else params, loader,
+                       stats=stats, quantized=policy.qtype is not None,
+                       subset=args.subset, verbose=True, qparams=qparams)
     print(f" * Prec@1 {res['top1']:.3f} Prec@5 {res['top5']:.3f} "
           f"({res['images_per_sec']:.1f} img/s on {device})")
     print(json.dumps({k: round(float(v), 4) for k, v in res.items()}))

@@ -1,21 +1,24 @@
 """Quantization tap context threaded through the model's forward.
 
-Port of ``cnn_quantization_tpu/engine/context.py`` (simulation half).  Each
-layer calls ``ctx.tap(out, site)`` on its output; the context is
+Port of ``cnn_quantization_tpu/engine/context.py``.  Each layer calls
+``ctx.tap(out, site)`` on its output; the context is
 
-  * ``TapContext``      - off: the tensor passes unchanged;
-  * ``CollectContext``  - computes calibration statistics of the tensor;
-  * ``QuantizeContext`` - applies the per-tag fake-quant policy (optionally
-                          from a calibration-stats dict or frozen qparams).
+  * ``TapContext``         - off: the tensor passes unchanged;
+  * ``ServingInt8Context`` - true-int8 serving: taps are identity, the convs
+                             and linears quantize their *inputs* and run int8
+                             arithmetic (models/layers.py);
+  * ``CollectContext``     - computes calibration statistics of the tensor;
+  * ``QuantizeContext``    - applies the per-tag fake-quant policy (optionally
+                             from a calibration-stats dict or frozen qparams).
 
 A fresh context is made for every forward.  Activations are NCHW, so the
-channel axis is 1 throughout.  ``ServingInt8Context`` comes with the
-true-int8 serving slice (ROADMAP Queue 1 item 5).
+channel axis is 1 throughout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Any, Mapping
 
@@ -55,6 +58,86 @@ class TapContext:
 
     def finalize(self) -> dict[str, Any]:
         return {}
+
+
+def percentile_rows(rows: torch.Tensor, q: float) -> torch.Tensor:
+    """The ``q``-th percentile of each row of ``rows`` [G, n], linearly
+    interpolated between the two nearest order statistics as
+    ``jnp.percentile`` does.  ``torch.quantile`` refuses inputs above 16 M
+    elements (a stage-1 activation at batch 64 has 51 M), so the rows are
+    sorted; calibration only, never on the hot path."""
+    n = rows.shape[-1]
+    pos = min(max(q, 0.0), 100.0) / 100.0 * (n - 1)
+    lo, hi = math.floor(pos), math.ceil(pos)
+    ordered = torch.sort(rows, dim=-1).values
+    low, high = ordered[..., lo], ordered[..., hi]
+    weight = torch.full((), pos - lo, dtype=rows.dtype, device=rows.device)
+    return low * (1.0 - weight) + high * weight
+
+
+class ServingInt8Context(TapContext):
+    """True-int8 serving mode: convs and linears run quantize -> int8 product
+    (int32 accumulate) -> dequant (models/layers.py, ops/kernels/int_conv.py);
+    taps are identity since activations are quantized at the conv inputs.
+
+    ``act_scales``: frozen per-site input scales (site id -> float32 device
+    scalar, or an ``[in_ch]`` vector for grouped convs) from calibration; a
+    site without one falls back to dynamic abs-max quantization, whose scale
+    is recorded so a calibration run can freeze it
+    (``QuantEngine.freeze_serving_scales``).  ``act_bits``/``weight_bits``
+    below 8 narrow the code grid; the codes still travel as int8 through the
+    same kernels.  ``calibrate`` also records per-input statistics (abs-max,
+    the requested |x| percentile, Laplace b = E|x|) so the frozen scales can
+    be clipped instead of stretched by outliers."""
+
+    mode = 'serving_int8'
+    int8_serving = True
+
+    # The first conv (in_ch == 3) runs as the float conv: three input channels
+    # waste an int8 tile's K, and the reference keeps the first layer at
+    # higher precision anyway (inference_quantization_manager.py:360-366).
+    bf16_first_conv = True
+
+    def __init__(self, act_scales: Mapping[str, Any] | None = None,
+                 act_bits: int = 8, weight_bits: int = 8,
+                 calibrate: bool = False, percentile: float = 99.99):
+        self.act_scales = dict(act_scales or {})
+        self.act_bits = act_bits
+        self.weight_bits = weight_bits
+        self.calibrate = calibrate
+        self.percentile = percentile
+        self.recorded: dict[str, Any] = {}
+
+    def record_scale(self, site_id: str, scale):
+        self.recorded[site_id] = scale
+
+    def record_input_stats(self, site_id: str, xf32, groups: int = 1):
+        """Calibration-time input statistics for scale freezing.
+
+        ``groups > 1`` (grouped/depthwise conv inputs, where the activation
+        scale factors out of the integer sum per group) records per-group
+        statistics repeated over each group's channels, so
+        ``freeze_serving_scales`` freezes an ``[in_ch]`` scale vector that is
+        constant within groups, the invariant ``int8_conv``'s epilogue
+        mapping relies on."""
+        if not self.calibrate:
+            return
+        per_group = groups > 1 and xf32.ndim == 4
+        if per_group:
+            n, c, h, w = xf32.shape
+            per = c // groups
+            rows = xf32.abs().reshape(n, groups, per, h, w).permute(1, 0, 2, 3, 4).reshape(
+                groups, -1)
+        else:
+            rows = xf32.abs().reshape(1, -1)
+        # the *requested* percentile, exactly
+        stats = {'absmax': rows.amax(dim=1), 'pq': percentile_rows(rows, self.percentile),
+                 'b': rows.mean(dim=1)}
+        for name, v in stats.items():
+            self.recorded[f'{site_id}/{name}'] = v.repeat_interleave(per) if per_group else v[0]
+
+    def finalize(self):
+        return dict(self.recorded)
 
 
 class CollectContext(TapContext):

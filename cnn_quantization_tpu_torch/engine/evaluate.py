@@ -19,8 +19,10 @@ from ..utils.meters import accuracy_counts, cross_entropy_sum
 from .engine import QuantEngine
 
 
-def make_eval_step(engine: QuantEngine, quantized: bool = True, qparams=None):
-    fwd = engine.make_forward(quantized, qparams=qparams)
+def make_eval_step(engine: QuantEngine, quantized: bool | str = True, qparams=None,
+                   act_scales=None, packed: bool = False):
+    fwd = engine.make_forward(quantized, qparams=qparams, act_scales=act_scales,
+                              packed=packed)
 
     def step(params, stats, images, labels):
         logits, aux = fwd(params, stats, images)
@@ -64,15 +66,19 @@ class _StepTimer:
 
 
 def evaluate(engine: QuantEngine, params, batches: Iterable, *,
-             stats: Mapping[str, Any] | None = None, quantized: bool = True,
+             stats: Mapping[str, Any] | None = None, quantized: bool | str = True,
              subset: int | None = None, print_freq: int = 10,
-             verbose: bool = False, qparams=None) -> dict[str, float]:
+             verbose: bool = False, qparams=None, act_scales=None,
+             packed: bool = False) -> dict[str, float]:
     """Run the eval loop; returns {'top1', 'top5', 'loss', 'images_per_sec'
     [, 'avg_entropy']}.  ``subset`` stops after N images.  ``images_per_sec``
-    counts the images over the summed step times."""
+    counts the images over the summed step times.
+    ``quantized='serving_int8'`` runs the true-integer deployment path
+    (with frozen ``act_scales`` if given)."""
     device = engine.device
     stats = stats_to_device(stats, device)
-    step = make_eval_step(engine, quantized, qparams=qparams)
+    step = make_eval_step(engine, quantized, qparams=qparams, act_scales=act_scales,
+                          packed=packed)
     timer = _StepTimer(device)
     zero = torch.zeros((), dtype=torch.float64, device=device)
     top1, top5, loss = zero.clone(), zero.clone(), zero.clone()

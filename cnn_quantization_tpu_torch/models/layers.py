@@ -1,21 +1,43 @@
 """Layer primitives with quantization tap sites (NCHW, OIHW).
 
-Port of the float/simulation branches of ``cnn_quantization_tpu/models/
-layers.py`` (the reference's ``*WithId`` intercepting layers,
-inference_quantization_manager.py:28-283).  Each layer carries a static
-``Site`` and calls the explicit ``TapContext`` on its output.  Activations are
-logical NCHW (channels_last in memory), conv weights OIHW, linear weights
-[out, in].  Float convs stay ``F.conv2d`` and float linears ``F.linear``, as
-the JAX package leaves them to XLA outside any Pallas kernel.
+Port of ``cnn_quantization_tpu/models/layers.py`` (the reference's ``*WithId``
+intercepting layers, inference_quantization_manager.py:28-283) without the
+packed-int4 serving parts (ROADMAP Queue 1 item 6).  Each layer carries a
+static ``Site`` and calls the explicit ``TapContext`` on its output.
+Activations are logical NCHW (channels_last in memory), conv weights OIHW,
+linear weights [out, in].  Float convs stay ``F.conv2d`` and float linears
+``F.linear``, as the JAX package leaves them to XLA outside any Pallas kernel;
+under a ``ServingInt8Context`` convs and linears run true-int8 arithmetic
+through the hand-written kernels (``ops/kernels/int_conv.py``,
+``ops/kernels/int_matmul.py``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..engine.context import Site, TapContext
+from ..ops.kernels import int_conv, int_matmul
+
+_PACKED_LATER = ('the packed-int4 serving orchestration is not ported yet: '
+                 'ROADMAP Queue 1 item 6 (W4A4 packed serving)')
+
+
+class QTensor(NamedTuple):
+    """Pre-quantized activation: int8 codes + the float32 scale they encode.
+
+    The int8-resident serving path (ResNet blocks) quantizes a block input
+    once and feeds the codes to every consumer (conv1, downsample, residual
+    dequant), so only 1-byte codes travel between blocks."""
+    codes: torch.Tensor   # int8, same layout as the float tensor it replaces
+    scale: torch.Tensor   # float32 scalar
+
+    def dequant(self, dtype=torch.float32):
+        return (self.codes.float() * self.scale).to(dtype)
 
 
 class SiteNamer:
@@ -68,14 +90,26 @@ def _tap(ctx: TapContext, y, site: Site | None):
 
 
 class QConv(nn.Module):
-    """Conv2d with bias and a tapped output (Conv2dWithId analogue)."""
+    """Conv2d with bias and a tapped output (Conv2dWithId analogue).
+
+    ``out_codes=True`` marks convs whose output feeds only a residual add
+    (ResNet downsample convs): at serving time, when calibration froze an
+    output scale (``<site>:out``), the conv emits a ``QTensor`` so the
+    identity crosses device memory as 1-byte codes.
+
+    A serving-prepared parameter tree replaces ``weight`` by int8 codes
+    (OIHW, channels_last memory) and adds a ``w_scale`` entry that only such a
+    tree carries; the module itself declares the float weight alone, so a
+    float state dict loads strictly."""
 
     def __init__(self, in_ch: int, features: int, kernel_size, strides=1, padding=0,
-                 groups: int = 1, use_bias: bool = True, site: Site | None = None):
+                 groups: int = 1, use_bias: bool = True, site: Site | None = None,
+                 out_codes: bool = False):
         super().__init__()
         kh, kw = _pair(kernel_size)
         self.strides, self.padding, self.groups = _pair(strides), _pair(padding), groups
-        self.site = site
+        self.in_ch, self.features = in_ch, features
+        self.site, self.out_codes = site, out_codes
         self.weight = nn.Parameter(torch.empty(features, in_ch // groups, kh, kw))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -86,10 +120,94 @@ class QConv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x, ctx: TapContext):
-        y = F.conv2d(x, self.weight, self.bias, self.strides, self.padding,
-                     groups=self.groups)
+    def forward(self, x, ctx: TapContext, residual=None, out_spec=None,
+                fuse_relu: bool = False):
+        """``residual``/``out_spec``/``fuse_relu`` are the packed-serving block
+        orchestration's inputs; they raise until that path is ported."""
+        if residual is not None or out_spec is not None or fuse_relu:
+            raise NotImplementedError(_PACKED_LATER)
+        weight = self.weight
+        # the s2d stem: prepare_serving_params(s2d_stem=True) stored the 7x7/2
+        # stem kernel as an equivalent int8 [O, 12, 4, 4] stride-1 kernel
+        stem_s2d = (self.in_ch == 3 and weight.dtype == torch.int8
+                    and tuple(weight.shape[1:]) == (12, 4, 4))
+        if getattr(ctx, 'int8_serving', False) and (stem_s2d or not (
+                self.in_ch == 3 and getattr(ctx, 'bf16_first_conv', True))):
+            return _tap(ctx, self._serve(x, ctx, stem_s2d), self.site)
+        if isinstance(x, QTensor):  # safety: dequantize codes on the float path
+            x = x.dequant()
+        y = F.conv2d(x, weight, self.bias, self.strides, self.padding, groups=self.groups)
         return _tap(ctx, y, self.site)
+
+    def _serve(self, x, ctx, stem_s2d: bool):
+        """True-int path: per-tensor (per-group for grouped convs) activation
+        quantization, frozen if the context holds a scale for this site, and
+        per-channel int8 weights through the int8 kernels."""
+        prequant = isinstance(x, QTensor)
+        if prequant:
+            x, pre_scale = x.codes, x.scale
+        # the first layer (any in_ch == 3 conv) is the 8-bit exception
+        # (reference i_q_m.py:336-338, 360-366); it must match
+        # freeze_serving_scales' full-grid conv0 scale
+        act_bits = 8 if self.in_ch == 3 else getattr(ctx, 'act_bits', 8)
+        if self.weight.dtype == torch.int8:
+            # offline-prepared tree: no per-call weight quantization
+            w_codes, w_scale = self.weight, self.w_scale
+        else:
+            w_codes, w_scale = int_conv.prepare_int8_weights(
+                self.weight, bits=getattr(ctx, 'weight_bits', 8))
+        # grouped convs admit per-group activation scales in true-int
+        # arithmetic: output channel o sums only over its group's inputs, so
+        # acc[o] * gs[group_of(o)] * w_scale[o] is exact (int8_conv maps it);
+        # depthwise is the fully per-channel case
+        per_group = (self.groups > 1 and self.in_ch % self.groups == 0
+                     and self.features % self.groups == 0)
+        site_id = self.site.id if self.site is not None else None
+        if prequant:
+            act_scale = pre_scale
+        else:
+            act_scale = getattr(ctx, 'act_scales', {}).get(site_id)
+            if act_scale is None:
+                # dynamic abs-max; recorded so calibration can freeze it
+                xf32 = x.float()
+                if per_group:
+                    per = self.in_ch // self.groups
+                    n, _, h, w = xf32.shape
+                    amax = xf32.abs().reshape(n, self.groups, per, h, w).amax(
+                        dim=(0, 2, 3, 4)).repeat_interleave(per)
+                else:
+                    amax = xf32.abs().amax()
+                act_scale = int_matmul.abs_max_scale(amax, act_bits)
+                if site_id is not None and hasattr(ctx, 'record_scale'):
+                    ctx.record_scale(site_id, act_scale)
+                    if getattr(ctx, 'calibrate', False):
+                        ctx.record_input_stats(site_id, xf32,
+                                               groups=self.groups if per_group else 1)
+        if stem_s2d:
+            if self.strides != (2, 2) or self.padding != (3, 3):
+                raise ValueError(f's2d stem kernel requires the 7x7/2 pad-3 stem, got '
+                                 f'strides={self.strides} padding={self.padding}')
+            # quantize the image, then pad + space-to-depth in the int8 domain
+            # (zero padding is exact at zero point 0), stride-1 equivalent conv
+            from ..engine.engine import s2d_stem_input
+            codes = int_matmul.quantize_sym_codes(x, act_scale)
+            y = int_conv.int8_conv(s2d_stem_input(codes), w_codes, w_scale, self.bias,
+                                   strides=(1, 1), padding=(0, 0), act_bits=8,
+                                   act_scale=act_scale)
+        else:
+            y = int_conv.int8_conv(x if prequant else x.float(), w_codes, w_scale, self.bias,
+                                   strides=self.strides, padding=self.padding,
+                                   groups=self.groups, act_bits=act_bits, act_scale=act_scale)
+        if self.out_codes and site_id is not None:
+            out_scale = getattr(ctx, 'act_scales', {}).get(site_id + ':out')
+            if out_scale is None and getattr(ctx, 'calibrate', False):
+                ctx.record_input_stats(site_id + ':out', y.float())
+            elif out_scale is not None:
+                # the identity crosses device memory as codes on the full int8
+                # grid whatever act_bits is (they are only dequantized for the
+                # residual add, never fed to an int conv)
+                y = QTensor(int_matmul.quantize_sym_codes(y, out_scale), out_scale)
+        return y
 
 
 class QLinear(nn.Module):
@@ -109,7 +227,28 @@ class QLinear(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x, ctx: TapContext):
-        return _tap(ctx, F.linear(x, self.weight, self.bias), self.site)
+        if not getattr(ctx, 'int8_serving', False):
+            return _tap(ctx, F.linear(x, self.weight, self.bias), self.site)
+        # true-int path; the classifier/linear stays 8-bit whatever the conv
+        # bit widths are (reference weight_classifier/activation_classifier
+        # policy, i_q_m.py:414, 437)
+        if self.weight.dtype == torch.int8:
+            w_codes, w_scale = self.weight, self.w_scale
+        else:
+            w_codes, w_scale = int_matmul.quantize_sym_int8(self.weight, axis=0, bits=8)
+        site_id = self.site.id if self.site is not None else None
+        act_scale = getattr(ctx, 'act_scales', {}).get(site_id)
+        xf = x.float()
+        if act_scale is None:
+            act_scale = int_matmul.abs_max_scale(xf.abs().amax(), 8)
+            if site_id is not None and hasattr(ctx, 'record_scale'):
+                ctx.record_scale(site_id, act_scale)
+                if getattr(ctx, 'calibrate', False):
+                    ctx.record_input_stats(site_id, xf)
+        x_q = int_matmul.quantize_sym_codes(xf, act_scale)
+        y = int_matmul.int8_matmul_dequant(x_q.reshape(-1, x_q.shape[-1]), w_codes.t(),
+                                           act_scale * w_scale, self.bias)
+        return _tap(ctx, y.reshape(*x_q.shape[:-1], -1), self.site)
 
 
 class QBatchNorm(nn.Module):
@@ -142,6 +281,15 @@ class QMaxPool(nn.Module):
         self.ceil_mode, self.site = ceil_mode, site
 
     def forward(self, x, ctx: TapContext):
+        if isinstance(x, QTensor):
+            # max commutes with the (monotone, symmetric) dequant, so the pool
+            # runs on the codes.  max_pool2d has no int8 kernel on CUDA: the
+            # codes pool as float16, exact for |code| <= 127; its -inf padding
+            # never wins, as every window of a pool whose padding is below its
+            # window holds a real element
+            y = F.max_pool2d(x.codes.to(torch.float16), self.window, self.strides,
+                             self.padding, ceil_mode=self.ceil_mode)
+            return _tap(ctx, QTensor(y.to(torch.int8), x.scale), self.site)
         y = F.max_pool2d(x, self.window, self.strides, self.padding,
                          ceil_mode=self.ceil_mode)
         return _tap(ctx, y, self.site)

@@ -1,7 +1,8 @@
-"""ResNet family, simulation path (NCHW in channels_last memory).
+"""ResNet family (NCHW in channels_last memory): the simulation path and the
+int8-resident true-int8 serving path.
 
-Port of ``cnn_quantization_tpu/models/resnet.py`` without the int8/packed
-serving paths (ROADMAP Queue 1 items 5-6).  Module and parameter names follow
+Port of ``cnn_quantization_tpu/models/resnet.py`` without the packed-int4
+serving orchestration (ROADMAP Queue 1 item 6).  Module and parameter names follow
 torchvision (``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight``), and
 site ids replicate the reference's construction-order numbering: downsample
 convs are numbered before the convs of a stage's first block.  BN is folded
@@ -16,7 +17,33 @@ import dataclasses
 from torch import nn
 
 from ..engine.context import Site, TapContext
-from .layers import QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool, SiteNamer, relu
+from ..ops.kernels.int_matmul import quantize_sym_codes
+from .layers import QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool, QTensor, SiteNamer, relu
+
+
+def _dequant_identity(identity):
+    """The residual identity may arrive as int8 codes (downsample out-codes
+    or the block's shared input codes); dequantize it for the add."""
+    if isinstance(identity, QTensor):
+        return identity.dequant()
+    return identity
+
+
+def _serving_block_input(x, ctx, conv1_site):
+    """Int8-resident serving: quantize the block input ONCE at conv1's frozen
+    scale and hand the codes to every consumer (conv1, downsample, residual
+    dequant), so only 1-byte codes travel between blocks.
+
+    Returns (x_in, identity): the conv input (QTensor or raw) and the residual
+    tensor.  Not serving, or no frozen scale (dynamic serving keeps per-conv
+    abs-max): the plain path."""
+    if not getattr(ctx, 'int8_serving', False) or isinstance(x, QTensor):
+        return x, x
+    scale = getattr(ctx, 'act_scales', {}).get(conv1_site.id)
+    if scale is None:
+        return x, x
+    q = QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
+    return q, q.dequant(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +66,8 @@ class BlockSpec:
 
 def _downsample(s: BlockSpec):
     dc, db = s.ds_sites
-    mods = [QConv(s.in_planes, s.out_planes, 1, s.stride, 0, use_bias=s.fold_bn, site=dc)]
+    mods = [QConv(s.in_planes, s.out_planes, 1, s.stride, 0, use_bias=s.fold_bn, site=dc,
+                  out_codes=s.fold_bn)]
     if not s.fold_bn:
         mods.append(QBatchNorm(s.out_planes, site=db))
     return nn.ModuleList(mods)
@@ -69,14 +97,16 @@ class BasicBlock(nn.Module):
 
     def forward(self, x, ctx: TapContext):
         fold = self.spec.fold_bn
+        x, identity = _serving_block_input(x, ctx, self.spec.conv_sites[0][0])
         out = self.conv1(x, ctx)
         if not fold:
             out = self.bn1(out, ctx)
         out = self.conv2(relu(out), ctx)
         if not fold:
             out = self.bn2(out, ctx)
-        identity = _run(self.downsample, x, ctx) if self.spec.has_downsample else x
-        return relu(out + identity)
+        if self.spec.has_downsample:
+            identity = _run(self.downsample, x, ctx)
+        return relu(out + _dequant_identity(identity))
 
 
 class Bottleneck(nn.Module):
@@ -100,6 +130,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, ctx: TapContext):
         fold = self.spec.fold_bn
+        x, identity = _serving_block_input(x, ctx, self.spec.conv_sites[0][0])
         out = self.conv1(x, ctx)
         if not fold:
             out = self.bn1(out, ctx)
@@ -109,8 +140,9 @@ class Bottleneck(nn.Module):
         out = self.conv3(relu(out), ctx)
         if not fold:
             out = self.bn3(out, ctx)
-        identity = _run(self.downsample, x, ctx) if self.spec.has_downsample else x
-        return relu(out + identity)
+        if self.spec.has_downsample:
+            identity = _run(self.downsample, x, ctx)
+        return relu(out + _dequant_identity(identity))
 
 
 class ResNet(nn.Module):
@@ -124,6 +156,7 @@ class ResNet(nn.Module):
             self.bn1 = QBatchNorm(64, site=bn_site)
         self.maxpool = QMaxPool(3, 2, 1, site=mp_site)
         self.stages = len(stage_specs)
+        self.first_block_site = stage_specs[0][0].conv_sites[0][0]
         for li, stage in enumerate(stage_specs):
             block = Bottleneck if stage[0].bottleneck else BasicBlock
             setattr(self, f'layer{li + 1}', nn.ModuleList(block(sp) for sp in stage))
@@ -135,7 +168,15 @@ class ResNet(nn.Module):
         x = self.conv1(x, ctx)
         if not self.fold_bn:
             x = self.bn1(x, ctx)
-        x = self.maxpool(relu(x), ctx)
+        x = relu(x)
+        if getattr(ctx, 'int8_serving', False) and self.fold_bn:
+            # serving: quantize the stem output at the first block conv's
+            # frozen input scale and max-pool on int8 codes (max commutes
+            # with dequant), so the 112x112 stem tensor is pooled at 1 byte
+            scale = getattr(ctx, 'act_scales', {}).get(self.first_block_site.id)
+            if scale is not None:
+                x = QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
+        x = self.maxpool(x, ctx)
         for li in range(self.stages):
             x = _run(getattr(self, f'layer{li + 1}'), x, ctx)
         x = self.avgpool(x, ctx)

@@ -3,17 +3,20 @@ interface (nvcc by hand, loaded with ctypes).
 
 ``csrc/<name>.cu`` compiles into
 ``cnn_quantization_tpu_torch/_build/lib<name>-<hash>.so``, where the hash
-covers the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing here runs at import time; the kernel
-wrappers build at first use.
+covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source rebuilds and an unchanged one is reused.  Nothing here runs at
+import time; the kernel wrappers build at first use, one blocking nvcc call
+per source; ``build_libraries`` starts several sources' calls together.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -39,8 +42,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f'{name}.cu'
-    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        digest.update(header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
@@ -59,3 +64,16 @@ def build_library(name: str) -> tuple[Path, str]:
         raise RuntimeError(f'nvcc failed for {name}.cu:\n{proc.stdout}')
     os.replace(tmp, out)
     return out, proc.stdout
+
+
+def build_libraries(names) -> dict[str, tuple[Path, str, float]]:
+    """Build several sources at once, one nvcc process each, all started
+    together; returns {name: (library path, nvcc output, seconds)}."""
+    def timed(name):
+        t0 = time.perf_counter()
+        path, log = build_library(name)
+        return path, log, time.perf_counter() - t0
+
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(timed, names)))

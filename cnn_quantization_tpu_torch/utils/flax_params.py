@@ -4,8 +4,13 @@ The inverse of the naming in ``cnn_quantization_tpu/utils/torch_import.py``
 (``_flax_path``, :89-102): a numeric path segment merged into its parent
 (``layer1_0``, ``downsample_0``) is split back out (``layer1.0``,
 ``downsample.0``); HWIO conv kernels become OIHW, ``[in, out]`` linear kernels
-``[out, in]``; BN leaves (scale/bias/mean/var) take torchvision's names.  With
-it both packages compute on identical weights.
+``[out, in]``; BN leaves (scale/bias/mean/var) take torchvision's names.  A
+*prepared serving tree* converts the same way: int8 ``kernel`` leaves keep
+their dtype (4-D codes land in channels_last memory, as
+``prepare_serving_params`` stores them; the s2d stem ``[4, 4, 12, O]`` becomes
+``[O, 12, 4, 4]``) and ``w_scale`` leaves become ``<module>.w_scale``.
+``act_scales_from_jax`` carries the frozen serving scales across.  With these
+both packages compute on identical weights, codes and scales.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 
 _LEAF_NAMES = {'bias': 'bias', 'scale': 'weight', 'mean': 'running_mean',
-               'var': 'running_var'}
+               'var': 'running_var', 'w_scale': 'w_scale'}
 
 
 def _torch_segment(seg: str) -> str:
@@ -38,12 +43,16 @@ def _walk(tree: Mapping[str, Any], path: tuple[str, ...]):
 
 
 def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Flax params (nested dicts of arrays) -> {torch name: float32 tensor}."""
+    """Flax params (nested dicts of arrays) -> {torch name: tensor}: float32,
+    apart from int8 kernel codes of a prepared serving tree."""
     out: dict[str, torch.Tensor] = {}
     for path, leaves in _walk(params, ()):
         prefix = '.'.join(_torch_segment(seg) for seg in path)
         for name, value in leaves.items():
-            v = np.asarray(value, np.float32)
+            v = np.asarray(value)
+            codes = name == 'kernel' and v.dtype == np.int8
+            if not codes:
+                v = v.astype(np.float32)
             if name == 'kernel':
                 if v.ndim == 4:
                     v = v.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -56,5 +65,16 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
                 key = _LEAF_NAMES[name]
             else:
                 raise ValueError(f'{prefix}: no torch counterpart for leaf {name!r}')
-            out[f'{prefix}.{key}'] = torch.tensor(v)  # a contiguous copy
+            t = torch.tensor(v)  # a contiguous copy
+            if codes and t.ndim == 4:
+                t = t.contiguous(memory_format=torch.channels_last)
+            out[f'{prefix}.{key}'] = t
     return out
+
+
+def act_scales_from_jax(scales: Mapping[str, Any]) -> dict[str, Any]:
+    """The JAX package's frozen serving ``act_scales`` (site id -> float, or
+    an ``[in_ch]`` float32 vector for grouped convs) as the port takes them.
+    Site ids and the channel order are the same in both packages."""
+    return {k: (float(v) if np.ndim(v) == 0 else np.asarray(v, np.float32).copy())
+            for k, v in scales.items()}

@@ -83,8 +83,8 @@ def test_cli_weights_fold_bn_like_jax(cli_env, capsys):
 
 
 @pytest.mark.parametrize('flag,item', [
-    (['--serving_int8'], 'item 5'),
-    (['--serving_packed'], 'item 6'),
+    (['--serving_int8', '--serving_packed'], 'item 6'),
+    (['--serving_packed_stages', '1,2'], 'item 6'),
     (['-kld'], 'item 8'),
     (['-mtq'], 'item 12'),
     (['-ep'], 'item 14'),
