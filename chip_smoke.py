@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
 source, started together), holds each against its plain PyTorch version at the
-shapes the main paths give it, and drives both main paths at 224x224, batch
-64, checking that each went through its kernels:
+shapes the main paths give it, and drives the three main paths at 224x224,
+batch 64, checking that each went through its kernels:
 
   * simulation: ResNet-50 W4A4 headline recipe (weight pass, statistics
     collection, .npz round trip, qparam freeze, frozen evaluation, one dynamic
@@ -13,7 +13,11 @@ shapes the main paths give it, and drives both main paths at 224x224, batch
   * true-int8 serving: ResNet-50 W8A8 (weight pass, serving preparation,
     scale freeze, frozen evaluation; one forward each for ACIQ calibration,
     the W4A4 grid, the space-to-depth stem and dynamic scales) through the
-    int8 GEMM and int8 conv kernels.
+    int8 GEMM and int8 conv kernels;
+  * W4A4 packed serving: ResNet-50 W4A4 (weight pass, serving preparation,
+    scale freeze with the packed grid, frozen packed evaluation; one forward
+    each for stages (1,) and (2, 3) and for scales without the packed keys)
+    through the int4-packed GEMM, the int8 conv and the int8 GEMM.
 
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
 and ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -41,9 +45,11 @@ from cnn_quantization_tpu_torch.engine import QuantEngine, QuantPolicy
 from cnn_quantization_tpu_torch.engine.evaluate import evaluate
 from cnn_quantization_tpu_torch.engine.qparams import discover_sites
 from cnn_quantization_tpu_torch.models import build_model
-from cnn_quantization_tpu_torch.models.layers import QConv, QLinear, QMaxPool, QTensor
+from cnn_quantization_tpu_torch.models.layers import (PackedQTensor, QConv, QLinear, QMaxPool,
+                                                      QTensor)
 from cnn_quantization_tpu_torch.ops.kernels import build
 from cnn_quantization_tpu_torch.ops.kernels import fake_quant as fq
+from cnn_quantization_tpu_torch.ops.kernels import int4_matmul as i4
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
 from cnn_quantization_tpu_torch.ops.quant_math import affine_qparams
@@ -51,7 +57,7 @@ from cnn_quantization_tpu_torch.ops.quant_math import affine_qparams
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense
-SOURCES = ('fake_quant', 'int8_gemm', 'int8_conv')
+SOURCES = ('fake_quant', 'int8_gemm', 'int8_conv', 'int4_gemm')
 W8A8 = dict(qtype='int8', qweight='int8')
 W4A4 = dict(qtype='int4', qweight='int4')
 HEADLINE = dict(qtype='int4', qweight='int4', pcq_weights=True, pcq_act=True,
@@ -76,6 +82,26 @@ CONV_SHAPES = {
 }
 TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048))
 TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512')
+REPLACES_INT4 = 'cnn_quantization_tpu/ops/kernels/int4_matmul.py:229'
+# the packed path's int4 GEMM calls at 224x224, batch 64: name -> (M, K, N, A
+# packed, residual, ReLU, out_mode); M = batch * H * W.  'rows' slices the rows
+# of a [64, K/2, 56, 56] packed activation spatially by 2, as a strided 1x1
+# conv does ahead of the GEMM.
+INT4_CASES = {
+    's1_b0_conv1': (200704, 64, 64, False, False, True, 'int8'),
+    's1_downsample': (200704, 64, 256, False, False, False, 'packed'),
+    's1_conv3': (200704, 64, 256, False, True, True, 'packed'),
+    's1_conv1': (200704, 256, 64, True, False, True, 'int8'),
+    's2_downsample_rows': (50176, 256, 512, True, False, False, 'packed'),
+    's4_conv1': (3136, 2048, 512, True, False, True, 'int8'),
+    's4_conv3_to_plain': (3136, 512, 2048, False, True, True, 'int8'),
+    's4_last_f32': (3136, 512, 2048, False, True, True, 'f32'),
+    's4_last_bf16': (3136, 512, 2048, False, True, True, 'bf16'),
+    'ragged_13': (13, 256, 256, True, True, True, 'packed'),
+    'ragged_70_f32': (70, 64, 256, False, True, False, 'f32'),
+    'ragged_70_n64': (70, 512, 64, True, False, True, 'int8'),
+}
+TIMED_INT4 = ('s1_conv3', 's1_conv1', 's4_conv1', 's4_last_f32')
 
 
 class SmokeFailure(Exception):
@@ -411,25 +437,29 @@ def serving_card_vs_cpu(device, arch='resnet18', size=64):
           and out['logits_rel_to_float'] < 0.03, f'serving logits: {out}')
 
 
-def serving_launch_table(model, s2d_stem=False):
-    """(int8 GEMM launches, int8 conv launches) of one serving forward, from
+def launch_table(model, stages=(), s2d_stem=False):
+    """(int4 GEMM, int8 GEMM, int8 conv) launches of one serving forward, from
     the model's modules and the routing rule: a 1x1 stride-1 unpadded
-    ungrouped conv and every linear is a GEMM, every other conv goes to the
-    conv kernel, and the in_ch == 3 stem stays a float conv unless it was
-    space-to-depth transformed."""
-    gemm = conv = 0
-    for m in model.modules():
+    ungrouped conv and every linear is an int8 GEMM, every other conv goes to
+    the conv kernel, and the in_ch == 3 stem stays a float conv unless it was
+    space-to-depth transformed.  In the 1-based ``stages`` that run packed,
+    conv1, conv3 and the downsample conv of every block are int4 GEMMs."""
+    int4 = gemm = conv = 0
+    for name, m in model.named_modules():
         if isinstance(m, QLinear):
             gemm += 1
         elif isinstance(m, QConv):
+            stage = int(name[5]) if name.startswith('layer') else 0
             if m.in_ch == 3:
                 conv += int(s2d_stem)
+            elif stage in stages and name.endswith(('.conv1', '.conv3', '.downsample.0')):
+                int4 += 1
             elif (tuple(m.weight.shape[2:]), m.strides, m.padding, m.groups) \
                     == ((1, 1), (1, 1), (0, 0), 1):
                 gemm += 1
             else:
                 conv += 1
-    return gemm, conv
+    return int4, gemm, conv
 
 
 def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batches=4):
@@ -443,8 +473,8 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     params = dict(model.state_dict())
     batches = list(synthetic_batches(batch, eval_batches, size=size, seed=12345))
     images = batches[0][0]
-    gemm_per, conv_per = serving_launch_table(model)
-    _, conv_s2d = serving_launch_table(model, s2d_stem=True)
+    _, gemm_per, conv_per = launch_table(model)
+    _, _, conv_s2d = launch_table(model, s2d_stem=True)
 
     def serve(eng, sp, scales):
         logits, aux = eng.make_forward(quantized='serving_int8', act_scales=scales)(
@@ -528,26 +558,27 @@ def int8_resident_flow(eng, sp, scales, pq, images):
           f'serving forward is not int8-resident: {out}')
 
 
-def serving_kernels_vs_plain_end_to_end(eng, sp, scales, images):
-    """The same prepared params, scales and batch through the port with the
-    kernels and with both wrappers patched to their plain versions.  The
-    integer part is exact and the float stem is the same cuDNN call in both
-    (deterministic algorithms), so: relative error <= 1e-6, argmax equal."""
+def kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=False):
+    """The same prepared params, scales and batch through a serving forward
+    with the kernels and with all three integer wrappers patched to their
+    plain versions.  The integer part is exact and the float stem is the same
+    cuDNN call in both (deterministic algorithms), so: relative error <= 1e-6,
+    argmax equal."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    fwd = eng.make_forward(quantized='serving_int8', act_scales=scales)
+    fwd = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=packed)
     kern, _ = fwd(sp, None, images)
-    launched = im.int8_matmul_dequant.launches, ic.int8_conv_dequant.launches
-    with mock.patch.object(im, 'int8_matmul_dequant', im.int8_matmul_dequant_plain), \
+    launched = kernel_launches()
+    with mock.patch.object(i4, 'int4_matmul', i4.int4_matmul_plain), \
+            mock.patch.object(im, 'int8_matmul_dequant', im.int8_matmul_dequant_plain), \
             mock.patch.object(ic, 'int8_conv_dequant', ic.int8_conv_dequant_plain):
         plain, _ = fwd(sp, None, images)
-    plain_launched_none = launched == (im.int8_matmul_dequant.launches,
-                                       ic.int8_conv_dequant.launches)
-    out = dict(rel_err=rel_err(kern, plain), plain_run_launched_no_kernel=plain_launched_none,
+    out = dict(rel_err=rel_err(kern, plain),
+               plain_run_launched_no_kernel=launched == kernel_launches(),
                argmax_equal=bool(torch.equal(kern.argmax(-1), plain.argmax(-1))))
-    emit('serving_kernels_vs_plain_end_to_end', **out)
-    check(out['argmax_equal'] and out['rel_err'] <= 1e-6 and plain_launched_none,
-          f'serving kernels vs plain: {out}')
+    emit(phase, **out)
+    check(out['argmax_equal'] and out['rel_err'] <= 1e-6 and out['plain_run_launched_no_kernel'],
+          f'{phase}: {out}')
 
 
 def device_time_by_kernel(fn):
@@ -585,34 +616,6 @@ def profile_frozen_step(engine, params_q, qparams, stats, images):
     return dict(batch=int(images.shape[0]), wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
                 fake_quant_ms=fq_ms, fake_quant_share_of_device=fq_ms / max(busy_ms, 1e-9),
-                images_per_sec_warm=images.shape[0] / wall_ms * 1e3,
-                top_device_ms=[[k[:80], us / 1e3] for k, us in top])
-
-
-def profile_serving_step(eng, sp, scales, images):
-    """Where the time of one warm frozen serving forward goes: device time in
-    the int8 GEMM, in the int8 conv, in PyTorch's elementwise kernels (the
-    quantize/dequantize chains, ReLU and the residual adds) and the rest."""
-    fwd = eng.make_forward(quantized='serving_int8', act_scales=scales)
-    for _ in range(2):
-        fwd(sp, None, images)
-    torch.cuda.synchronize()
-    wall_ms, device_us = device_time_by_kernel(lambda: fwd(sp, None, images))
-    busy_ms = sum(device_us.values()) / 1e3
-
-    def total_ms(*needles):
-        return sum(us for k, us in device_us.items() if any(n in k for n in needles)) / 1e3
-
-    gemm_ms, conv_ms = total_ms('DenseA'), total_ms('ConvA')
-    elementwise_ms = total_ms('elementwise_kernel')
-    copy_ms = total_ms('Memcpy')
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
-    return dict(batch=int(images.shape[0]), wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-                int8_gemm_ms=gemm_ms, int8_conv_ms=conv_ms, elementwise_ms=elementwise_ms,
-                memcpy_ms=copy_ms, other_ms=busy_ms - gemm_ms - conv_ms - elementwise_ms - copy_ms,
-                int8_kernels_share_of_device=(gemm_ms + conv_ms) / max(busy_ms, 1e-9),
-                elementwise_share_of_device=elementwise_ms / max(busy_ms, 1e-9),
                 images_per_sec_warm=images.shape[0] / wall_ms * 1e3,
                 top_device_ms=[[k[:80], us / 1e3] for k, us in top])
 
@@ -670,6 +673,318 @@ def int8_timing(device, card):
     return rows
 
 
+def int4_case(name, gen, device):
+    """One int4 GEMM call of the packed path on the +-7 grid: (a, b, alpha,
+    beta) and the keyword arguments, scales as device scalars."""
+    m, k, n, a_packed, with_res, relu, mode = INT4_CASES[name]
+    if name.endswith('_rows'):
+        full = i4.pack_int4(int8_codes((64, 56, 56, k), 7, gen, device))   # NHWC bytes
+        a = full[:, ::2, ::2, :].reshape(m, k // 2)
+    else:
+        a = int8_codes((m, k), 7, gen, device)
+        a = i4.pack_int4(a) if a_packed else a
+    bt = int8_codes((n, k), 7, gen, device)
+    alpha = (torch.rand(n, generator=gen) * 2e-3 + 1e-4).to(device)
+    beta = (torch.randn(n, generator=gen) * 0.05).to(device)
+    kw = dict(a_packed=a_packed, fuse_relu=relu, out_mode=mode, out_qmax=7.0,
+              out_scale=torch.full((), 0.07, device=device))
+    if with_res:
+        kw.update(residual=i4.pack_int4(int8_codes((m, n), 7, gen, device)),
+                  res_scale=torch.full((), 0.11, device=device))
+    return (a, bt.t(), alpha, beta), kw
+
+
+def int4_kernel_vs_plain(device):
+    """The int4 GEMM kernel against its plain version in every mode the packed
+    path uses, at the path's own shapes, plus ragged M: codes and packed bytes
+    must be equal, float32 outputs bit-identical, bf16 within one ulp; and the
+    pack/unpack round trip on the card."""
+    gen = torch.Generator().manual_seed(3)
+    errs, bf16_over = {}, 0
+    for name in INT4_CASES:
+        args, kw = int4_case(name, gen, device)
+        got = i4.int4_matmul(*args, **kw)
+        want = i4.int4_matmul_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype, f'int4 {name}: shape or dtype')
+        if kw['out_mode'] == 'bf16':
+            bf16_over += bf16_over_one_ulp(got, want)
+            continue
+        # integer outputs compared as bytes; |difference| of codes for the report
+        errs[name] = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want), f'int4 GEMM != plain in {name}: max abs {errs[name]}')
+    codes = int8_codes((4096, 512), 7, gen, device)
+    raw = torch.randint(-128, 128, (4096, 256), generator=gen, dtype=torch.int8).to(device)
+    round_trip = bool(torch.equal(i4.unpack_int4(i4.pack_int4(codes)), codes)
+                      and torch.equal(i4.pack_int4(i4.unpack_int4(raw)), raw))
+    emit('int4_kernel_vs_plain', max_abs_err=errs, bf16_elements_over_one_ulp=bf16_over,
+         pack_unpack_round_trip=round_trip)
+    check(bf16_over == 0, f'{bf16_over} int4 GEMM bf16 outputs off by more than one ulp')
+    check(round_trip, 'pack_int4/unpack_int4 round trip on the card')
+    return max(errs.values())
+
+
+def im2col_vs_implicit(device):
+    """im2col patches + the int8 GEMM kernel against the implicit-GEMM conv
+    kernel at 3x3_s1_c64: the same function, bit for bit."""
+    gen = torch.Generator().manual_seed(4)
+    (x, w, w_scale, bias), kw = conv_case('3x3_s1_c64', 7, gen, device)
+    kw.pop('groups')
+    launched = im.int8_matmul_dequant.launches, ic.int8_conv_dequant.launches
+    explicit = ic.int8_conv_im2col(x, w, w_scale, bias, fuse_relu=True, **kw)
+    implicit = ic.int8_conv(x, w, w_scale, bias, fuse_relu=True, **kw)
+    torch.cuda.synchronize()
+    through = (im.int8_matmul_dequant.launches - launched[0],
+               ic.int8_conv_dequant.launches - launched[1])
+    equal = bool(torch.equal(explicit, implicit))
+    emit('im2col_vs_implicit_conv', shape='3x3_s1_c64', equal=equal,
+         gemm_and_conv_launches=list(through))
+    check(equal and through == (1, 1), 'im2col + int8 GEMM != implicit-GEMM int8 conv')
+
+
+def kernel_launches():
+    return (i4.int4_matmul.launches, im.int8_matmul_dequant.launches,
+            ic.int8_conv_dequant.launches)
+
+
+def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batches=4):
+    """The W4A4 packed serving path through the entry points a user calls:
+    weight pass, serving preparation, scale freeze with the packed grid (max,
+    2 batches), frozen packed evaluation; then one forward each with stages
+    (1,) and (2, 3) packed, and one with the ``:out:packed`` keys removed,
+    which must fall back to the plain path in full.  Returns (engine, prepared
+    params, frozen scales, one batch, report)."""
+    model, meta = build_model(arch, device=device, seed=0)
+    params = dict(model.state_dict())
+    batches = list(synthetic_batches(batch, eval_batches, size=size, seed=12345))
+    images = batches[0][0]
+    all_stages = (1, 2, 3, 4)
+    table = {st: launch_table(model, st) for st in ((), (1,), (2, 3), all_stages)}
+
+    def forward(scales, packed):
+        logits, _ = eng.make_forward(quantized='serving_int8', act_scales=scales,
+                                     packed=packed)(sp, None, images)
+        return logits
+
+    i4.int4_matmul.launches = 0
+    im.int8_matmul_dequant.launches = 0
+    ic.int8_conv_dequant.launches = 0
+    t0 = time.perf_counter()
+    eng = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
+    sp = eng.prepare_serving_params(eng.quantize_params(params))
+    scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max', packed=True)
+    after_freeze = kernel_launches()
+    res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales, packed=True)
+    after_eval = kernel_launches()
+    finite, per_forward = {}, {}
+    for name, packed in (('stage_1', (1,)), ('stages_2_3', (2, 3))):
+        before = kernel_launches()
+        logits = forward(scales, packed)
+        finite[name] = bool(torch.isfinite(logits).all()) and logits.shape == (batch, 1000)
+        per_forward[name] = [b - a for a, b in zip(before, kernel_launches())]
+    no_packed_keys = {k: v for k, v in scales.items() if not k.endswith(':out:packed')}
+    before = kernel_launches()
+    fallback = forward(no_packed_keys, True)
+    per_forward['fallback'] = [b - a for a, b in zip(before, kernel_launches())]
+    fallback_equals_plain = bool(torch.equal(fallback, forward(no_packed_keys, False)))
+    finite['fallback'] = bool(torch.isfinite(fallback).all())
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+
+    # 2 dynamic calibration forwards and the 2 fallback forwards run plain
+    forwards = {(): 2 + 2, all_stages: eval_batches, (1,): 1, (2, 3): 1}
+    predicted = [sum(table[st][i] * n for st, n in forwards.items()) for i in range(3)]
+    report = dict(arch=arch, input_size=size, batch=batch, grid='W4A4',
+                  per_forward_table={'packed': table[all_stages], 'stage_1': table[(1,)],
+                                     'stages_2_3': table[(2, 3)], 'plain': table[()]},
+                  per_forward_measured=dict(
+                      packed=[(b - a) // eval_batches for a, b in zip(after_freeze, after_eval)],
+                      **per_forward),
+                  forwards=sum(forwards.values()),
+                  launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), launches)),
+                  predicted_launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), predicted)),
+                  frozen_sites=len(scales),
+                  packed_out_keys=sum(k.endswith(':out:packed') for k in scales),
+                  fallback_equals_plain=fallback_equals_plain,
+                  top1=res['top1'], top5=res['top5'], loss=res['loss'],
+                  images_per_sec=res['images_per_sec'], finite=finite,
+                  packed_path_wall_s=wall)
+    return eng, sp, scales, images, report
+
+
+def packed_flow(eng, sp, scales, images):
+    """In the fully packed forward every conv1 and downsample conv other than
+    stage 1 block 0's is fed a PackedQTensor, every conv3 a packed residual,
+    and nothing is recorded (every scale frozen)."""
+    fed = {}
+    conv_forward = QConv.forward
+
+    def conv(self, x, ctx, **kw):
+        fed[self.site.id] = (type(x).__name__, type(kw.get('residual')).__name__)
+        return conv_forward(self, x, ctx, **kw)
+
+    with mock.patch.object(QConv, 'forward', conv):
+        logits, aux = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=True)(
+            sp, None, images)
+    wrong = []
+    for name, m in eng.model.named_modules():
+        if not isinstance(m, QConv) or not name.startswith('layer'):
+            continue
+        x_kind, res_kind = fed[m.site.id]
+        first = name.startswith('layer1.0.')
+        if name.endswith(('.conv1', '.downsample.0')):
+            ok = x_kind == (QTensor.__name__ if first else PackedQTensor.__name__)
+        elif name.endswith('.conv3'):
+            ok = x_kind == QTensor.__name__ and res_kind == PackedQTensor.__name__
+        else:
+            ok = x_kind == QTensor.__name__
+        if not ok:
+            wrong.append(name)
+    out = dict(trunk_convs=sum(1 for n, m in eng.model.named_modules()
+                               if isinstance(m, QConv) and n.startswith('layer')),
+               not_fed_as_expected=wrong, frozen_forward_records=len(aux),
+               logits_finite=bool(torch.isfinite(logits).all()))
+    emit('packed_flow', **out)
+    check(not wrong and not aux and out['logits_finite'],
+          f'packed forward does not carry packed codes between blocks: {out}')
+
+
+def packed_grid_scales(scales):
+    """The plain path's comparison scales: ':out' identity codes on the packed
+    grid (step absmax / 7; the plain path's +-127 clip is then a no-op), so
+    both paths quantize the identity alike."""
+    return {k: scales.get(k + ':packed', v) for k, v in scales.items()}
+
+
+def packed_vs_plain_on_card(eng, sp, scales, images):
+    """The packed forward against the plain int8-resident forward given the
+    packed-grid ':out' scales: the same separately rounded operations, so the
+    logits must be equal."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    packed, _ = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=True)(
+        sp, None, images)
+    plain, _ = eng.make_forward(quantized='serving_int8',
+                                act_scales=packed_grid_scales(scales))(sp, None, images)
+    out = dict(equal=bool(torch.equal(packed, plain)),
+               max_abs_diff=float((packed - plain).abs().max()), rel_err=rel_err(packed, plain),
+               argmax_equal=bool(torch.equal(packed.argmax(-1), plain.argmax(-1))))
+    emit('packed_vs_plain_on_card', **out)
+    check(out['equal'], f'packed forward != plain forward under packed-grid scales: {out}')
+
+
+def packed_card_vs_cpu(device, arch='resnet50', size=64):
+    """The packed path on the card (kernels) and on the CPU (plain versions)
+    from one set of quantized weights at a small input: prepared codes equal,
+    frozen scales (the packed keys included) within 1e-5 relative, and on
+    either device the packed logits finite and equal to that device's plain
+    forward under the packed-grid scales.  The logits of the two devices are
+    reported: on a +-7 grid one code flipped by the float stem (cuDNN and the
+    CPU sum in another order) moves every code behind it."""
+    batches = list(synthetic_batches(2, 2, size=size, seed=1))
+    x = batches[0][0]
+    cpu = torch.device('cpu')
+    model, meta = build_model(arch, device=cpu, seed=0)
+    pq_host = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta).quantize_params(
+        dict(model.state_dict()))
+    runs = {}
+    for dev in (device, cpu):
+        model, meta = build_model(arch, device=dev, seed=0)
+        eng = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
+        sp = eng.prepare_serving_params({k: v.to(dev) for k, v in pq_host.items()})
+        scales = eng.freeze_serving_scales(sp, batches, packed=True)
+        packed, _ = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=True)(
+            sp, None, x)
+        plain, _ = eng.make_forward(quantized='serving_int8',
+                                    act_scales=packed_grid_scales(scales))(sp, None, x)
+        runs[dev.type] = ({k: v.cpu() for k, v in sp.items()}, scales, packed.cpu(),
+                          bool(torch.equal(packed, plain)))
+    (sp_c, sc_c, l_c, eq_c), (sp_h, sc_h, l_h, eq_h) = runs[device.type], runs['cpu']
+    codes_equal = all(torch.equal(sp_c[k], sp_h[k]) for k in sp_h if sp_h[k].dtype == torch.int8)
+    scale_err = max(abs(sc_c[k] - sc_h[k]) / sc_h[k] for k in sc_h)
+    out = dict(arch=arch, input_size=size, prepared_codes_equal=codes_equal,
+               frozen_sites=len(sc_c), packed_out_keys=sum(k.endswith(':packed') for k in sc_c),
+               frozen_scales_max_rel=scale_err, packed_equals_plain_on_card=eq_c,
+               packed_equals_plain_on_cpu=eq_h, logits_rel_card_vs_cpu=rel_err(l_c, l_h),
+               argmax_equal_card_vs_cpu=bool(torch.equal(l_c.argmax(-1), l_h.argmax(-1))))
+    emit('packed_card_vs_cpu', **out)
+    check(codes_equal and set(sc_c) == set(sc_h) and out['packed_out_keys'] == 4
+          and scale_err <= 1e-5, f'packed preparation differs between card and CPU: {out}')
+    check(eq_c and eq_h and l_c.shape == (2, 1000) and bool(torch.isfinite(l_c).all()),
+          f'packed logits: {out}')
+
+
+def profile_serving_forward(fwd, sp, images):
+    """Where the time of one warm frozen serving forward goes: device time in
+    the int4 GEMM, the int8 GEMM, the int8 conv, PyTorch's elementwise kernels
+    (quantize/dequantize chains, ReLU, residual adds), copies and the rest."""
+    for _ in range(2):
+        fwd(sp, None, images)
+    torch.cuda.synchronize()
+    wall_ms, device_us = device_time_by_kernel(lambda: fwd(sp, None, images))
+    busy_ms = sum(device_us.values()) / 1e3
+
+    def total_ms(*needles):
+        return sum(us for k, us in device_us.items() if any(n in k for n in needles)) / 1e3
+
+    parts = dict(int4_gemm_ms=total_ms('Int4A'), int8_gemm_ms=total_ms('DenseA'),
+                 int8_conv_ms=total_ms('ConvA'), elementwise_ms=total_ms('elementwise_kernel'),
+                 memcpy_ms=total_ms('Memcpy'))
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    return dict(batch=int(images.shape[0]), wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1 - busy_ms / wall_ms), **parts,
+                other_ms=busy_ms - sum(parts.values()),
+                elementwise_share_of_device=parts['elementwise_ms'] / max(busy_ms, 1e-9),
+                device_records=sum(1 for _ in device_us),
+                images_per_sec_warm=images.shape[0] / wall_ms * 1e3,
+                top_device_ms=[[k[:80], us / 1e3] for k, us in top])
+
+
+def packed_step_profile(eng, sp, scales, images, card):
+    """One warm frozen packed forward beside the plain W4A4 forward of the
+    same weights and scales (plain, packed, packed, plain)."""
+    plain = eng.make_forward(quantized='serving_int8', act_scales=scales)
+    packed = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=True)
+    runs = [(name, profile_serving_forward(fwd, sp, images))
+            for name, fwd in (('plain', plain), ('packed', packed), ('packed', packed),
+                              ('plain', plain))]
+    emit('packed_step_profile', card=card,
+         plain=[r for n, r in runs if n == 'plain'], packed=[r for n, r in runs if n == 'packed'])
+
+
+def int4_timing(device, card):
+    """The int4 GEMM at the packed path's heaviest shapes: kernel, plain
+    version, bound (bytes: A at half a byte a code when packed, the residual
+    at half a byte, the output at its stored width) and one library call
+    (torch._int_mm on unpacked int8 codes: the int32 product alone, no
+    unpacking, no epilogue, a 4-byte output; the port never calls it)."""
+    gen = torch.Generator().manual_seed(5)
+    rows = []
+    out_bytes = {'f32': 4.0, 'bf16': 2.0, 'int8': 1.0, 'packed': 0.5}
+    for name in TIMED_INT4:
+        m, k, n, a_packed, with_res, _, mode = INT4_CASES[name]
+        args, kw = int4_case(name, gen, device)
+        ms = cuda_ms(lambda: i4.int4_matmul(*args, **kw))
+        host_paced_ms = cuda_ms(lambda: i4.int4_matmul(*args, **kw), head_start=False)
+        plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(*args, **kw), iters=5, warmup=1)
+        a_codes = i4.unpack_int4(args[0]) if a_packed else args[0]
+        b = args[1].contiguous()
+        library_ms = cuda_ms(lambda: torch._int_mm(a_codes, b))
+        ops = 2 * m * n * k
+        nbytes = (m * k * (0.5 if a_packed else 1.0) + k * n + m * n * out_bytes[mode]
+                  + (m * n * 0.5 if with_res else 0.0) + 8 * n)
+        bound_ms, bound_by = int8_bound_ms(ops, nbytes)
+        rows.append(dict(
+            case=name, shape=f'[{m},{k}{"p" if a_packed else ""}]x[{k},{n}]'
+                             f'{" + residual" if with_res else ""}', out=mode,
+            ms=ms, host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, tera_ops_per_s=ops / ms / 1e9,
+            gb_per_s=nbytes / ms / 1e6))
+    emit('int4_timing', card=card, int4_gemm=rows)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -692,6 +1007,8 @@ def main():
 
     max_err, act, (d_pc, o_pc, q_pc) = kernel_vs_plain(device)
     gemm_err, conv_err = int8_kernels_vs_plain(device)
+    int4_err = int4_kernel_vs_plain(device)
+    im2col_vs_implicit(device)
     emit('card_vs_cpu', **card_vs_cpu(device))
     serving_card_vs_cpu(device)
 
@@ -730,9 +1047,34 @@ def main():
           and srep['s2d_stem_kernel'] == ['torch.int8', [64, 12, 4, 4]]
           and srep['w4a4_max_code'] == 7, f'serving path bookkeeping: {srep}')
     int8_resident_flow(eng, sp, scales, pq, images)
-    serving_kernels_vs_plain_end_to_end(eng, sp, scales, images)
-    emit('serving_step_profile', card=card, **profile_serving_step(eng, sp, scales, images))
+    kernels_vs_plain_end_to_end('serving_kernels_vs_plain_end_to_end', eng, sp, scales, images)
+    emit('serving_step_profile', card=card, **profile_serving_forward(
+        eng.make_forward(quantized='serving_int8', act_scales=scales), sp, images))
     del eng, sp, scales, pq
+
+    # ---- main path 3: W4A4 packed serving through the int4-packed GEMM
+    packed_card_vs_cpu(device)
+    eng, sp, scales, images, prep = drive_packed_path(device)
+    emit('packed_path', card=card, **prep)
+    check(prep['launches']['int4_gemm'] > 0 and prep['launches'] == prep['predicted_launches'],
+          f"packed path launches {prep['launches']} != predicted {prep['predicted_launches']}")
+    check(prep['per_forward_table']['packed'] == (36, 1, 16)
+          and prep['per_forward_measured']['packed'] == [36, 1, 16]
+          and prep['per_forward_measured']['stage_1'] == list(prep['per_forward_table']['stage_1'])
+          and prep['per_forward_measured']['stages_2_3']
+          == list(prep['per_forward_table']['stages_2_3'])
+          and prep['per_forward_measured']['fallback'] == list(prep['per_forward_table']['plain'])
+          and prep['per_forward_measured']['fallback'][0] == 0 and prep['fallback_equals_plain'],
+          f'packed path launches per forward: {prep}')
+    check(np.isfinite([prep['top1'], prep['top5'], prep['loss']]).all()
+          and all(prep['finite'].values()) and prep['packed_out_keys'] == 4,
+          f'packed path output: {prep}')
+    packed_flow(eng, sp, scales, images)
+    packed_vs_plain_on_card(eng, sp, scales, images)
+    kernels_vs_plain_end_to_end('packed_kernels_vs_plain_end_to_end', eng, sp, scales, images,
+                                packed=True)
+    packed_step_profile(eng, sp, scales, images, card)
+    del eng, sp, scales
 
     # ---- kernel times at the main paths' shapes
     # fake-quant: the per-channel activation fake-quant at the stage-1 shape.
@@ -752,6 +1094,7 @@ def main():
          bound_ms=bound_ms, achieved_gb_per_s=2 * act.numel() * 4 / ms / 1e6)
     del act
     timing = int8_timing(device, card)
+    timing['int4_gemm'] = int4_timing(device, card)
 
     def int8_row(name, source, replaces, launches, err):
         # the kernels line carries the heaviest shape; the other is in int8_timing
@@ -771,7 +1114,10 @@ def main():
         int8_row('int8_gemm', 'cnn_quantization_tpu_torch/csrc/int8_gemm.cu', REPLACES_GEMM,
                  srep['gemm_launches'], gemm_err),
         int8_row('int8_conv', 'cnn_quantization_tpu_torch/csrc/int8_conv.cu', REPLACES_CONV,
-                 srep['conv_launches'], conv_err)]}))
+                 srep['conv_launches'], conv_err),
+        dict(int8_row('int4_gemm', 'cnn_quantization_tpu_torch/csrc/int4_gemm.cu', REPLACES_INT4,
+                      prep['launches']['int4_gemm'], int4_err),
+             modes=sorted({c[6] for c in INT4_CASES.values()}))]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}))
     return 0

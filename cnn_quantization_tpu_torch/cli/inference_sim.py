@@ -18,6 +18,9 @@ This slice runs the simulation path of the README's ResNet commands:
   # true-int8 serving: prepared int8 weights, frozen activation scales
   python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -b 64 \\
       --qtype int8 -qw int8 --serving_int8 [--serving_cal aciq] [--serving_s2d_stem]
+  # W4A4 packed serving: the Bottleneck trunk's 1x1 convs as int4-packed GEMMs
+  python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -b 64 \\
+      --qtype int4 -qw int4 --serving_int8 --serving_packed [--serving_packed_stages 1,3]
 
 plus ``--device`` (the card unless ``cpu``), ``--input_size``, ``--subset``
 and ``--seed``.  Data is synthetic (``data/synthetic.py``).  The parser keeps
@@ -41,8 +44,6 @@ _UNPORTED = {
     'print_freq': _LATER_CLI,
     'dtype': _LATER_CLI,
     'q_off': _LATER_CLI,
-    'serving_packed': 'Queue 1 item 6 (W4A4 packed serving)',
-    'serving_packed_stages': 'Queue 1 item 6 (W4A4 packed serving)',
     'stochastic': _LATER_CLI,
     'eval_precision': _LATER_CLI,
     'rho_act': _LATER_CLI,
@@ -97,6 +98,13 @@ def build_parser():
                    help='percentile for --serving_cal percentile (any value, used exactly)')
     p.add_argument('--serving_s2d_stem', action='store_true',
                    help='space-to-depth int8 stem rewrite (opt-in)')
+    p.add_argument('--serving_packed', action='store_true',
+                   help='with --serving_int8 at 4-bit activations on a Bottleneck ResNet: '
+                        'run the 1x1 convs as int4-packed GEMMs, block boundaries two '
+                        'codes to a byte')
+    p.add_argument('--serving_packed_stages', default=None,
+                   help='with --serving_packed: comma-separated 1-based stages to pack '
+                        '(e.g. 1,3); the others stay on the plain int8 path')
     p.add_argument('--shuffle', '-sh', action='store_true',
                    help='shuffle the evaluation images (seeded)')
     p.add_argument('--clipping', '-c', default='no',
@@ -118,8 +126,6 @@ def build_parser():
             (('--print-freq', '-p'), dict(type=int)),
             (('--dtype',), {}),
             (('--q_off',), dict(action='store_true')),
-            (('--serving_packed',), dict(action='store_true')),
-            (('--serving_packed_stages',), {}),
             (('--stochastic', '-s'), dict(action='store_true')),
             (('--eval_precision', '-ep'), dict(action='store_true')),
             (('--rho_act', '-ra'), dict(type=float)),
@@ -158,6 +164,26 @@ def _reject_unported(args):
     if args.weights and not args.weights.endswith(('.pth', '.pt')):
         raise SystemExit(f'--weights {args.weights}: only torchvision .pth/.pt '
                          f'checkpoints load in this slice (ROADMAP {_LATER_CLI})')
+
+
+def packed_from_args(args):
+    """``packed`` for ``make_forward``: False, True, or the tuple of stages of
+    ``--serving_packed_stages``.  Unlike the JAX CLI, which ignores them, a
+    stage list without ``--serving_packed`` and an empty one are refused."""
+    stages = args.serving_packed_stages
+    if args.serving_packed and not args.serving_int8:
+        raise SystemExit('--serving_packed needs --serving_int8')
+    if stages is None:
+        return args.serving_packed
+    if not args.serving_packed:
+        raise SystemExit('--serving_packed_stages needs --serving_packed')
+    try:
+        picked = tuple(int(s) for s in stages.split(',') if s.strip())
+    except ValueError:
+        picked = ()
+    if not picked or any(not 1 <= s <= 4 for s in picked):
+        raise SystemExit(f'--serving_packed_stages must list stages 1-4, got {stages!r}')
+    return picked
 
 
 def policy_from_args(args):
@@ -208,6 +234,7 @@ def _s2d_stem_applied(params_s) -> bool:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     _reject_unported(args)
+    packed = packed_from_args(args)
 
     from ..calib.calibrator import (collect_statistics, default_stats_path,
                                     load_stats, save_stats)
@@ -260,9 +287,10 @@ def main(argv=None):
             print(f'=> note: --serving_s2d_stem requested but not applied ({why}); '
                   'stem runs as the float conv')
         scales = engine.freeze_serving_scales(params_s, loader, mode=args.serving_cal,
-                                              percentile=args.serving_percentile)
+                                              percentile=args.serving_percentile,
+                                              packed=args.serving_packed)
         res = evaluate(engine, params_s, loader, stats=stats, quantized='serving_int8',
-                       act_scales=scales, subset=args.subset, verbose=True)
+                       act_scales=scales, packed=packed, subset=args.subset, verbose=True)
     else:
         res = evaluate(engine, params_q if policy.qtype else params, loader,
                        stats=stats, quantized=policy.qtype is not None,

@@ -110,10 +110,10 @@ extern "C" int cnnq_int8_conv(const void* x, const void* w, void* out, const voi
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (out_dtype == 0) {
-    rc = cnnq::launch_int8_mma<ConvA, float>(A, w, out, alpha, bias, M, o / groups, K, o, groups,
+    rc = cnnq::launch_int8_dequant<ConvA, float>(A, w, out, alpha, bias, M, o / groups, K, o, groups,
                                              relu, s);
   } else if (out_dtype == 1) {
-    rc = cnnq::launch_int8_mma<ConvA, __nv_bfloat16>(A, w, out, alpha, bias, M, o / groups, K, o,
+    rc = cnnq::launch_int8_dequant<ConvA, __nv_bfloat16>(A, w, out, alpha, bias, M, o / groups, K, o,
                                                      groups, relu, s);
   } else {
     return -1;

@@ -60,9 +60,9 @@ extern "C" int cnnq_int8_gemm(const void* a, const void* bt, void* out, const vo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (out_dtype == 0) {
-    rc = cnnq::launch_int8_mma<DenseA, float>(A, bt, out, alpha, beta, M, N, K, N, 1, relu, s);
+    rc = cnnq::launch_int8_dequant<DenseA, float>(A, bt, out, alpha, beta, M, N, K, N, 1, relu, s);
   } else if (out_dtype == 1) {
-    rc = cnnq::launch_int8_mma<DenseA, __nv_bfloat16>(A, bt, out, alpha, beta, M, N, K, N, 1, relu,
+    rc = cnnq::launch_int8_dequant<DenseA, __nv_bfloat16>(A, bt, out, alpha, beta, M, N, K, N, 1, relu,
                                                       s);
   } else {
     return -1;

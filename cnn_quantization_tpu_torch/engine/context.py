@@ -88,7 +88,10 @@ class ServingInt8Context(TapContext):
     below 8 narrow the code grid; the codes still travel as int8 through the
     same kernels.  ``calibrate`` also records per-input statistics (abs-max,
     the requested |x| percentile, Laplace b = E|x|) so the frozen scales can
-    be clipped instead of stretched by outliers."""
+    be clipped instead of stretched by outliers.  ``packed`` (True, or a tuple
+    of 1-based ResNet stages) asks a Bottleneck trunk for the W4A4 packed
+    orchestration (models/resnet.py); it engages only with scales frozen with
+    ``packed=True``."""
 
     mode = 'serving_int8'
     int8_serving = True
@@ -100,8 +103,10 @@ class ServingInt8Context(TapContext):
 
     def __init__(self, act_scales: Mapping[str, Any] | None = None,
                  act_bits: int = 8, weight_bits: int = 8,
-                 calibrate: bool = False, percentile: float = 99.99):
+                 calibrate: bool = False, percentile: float = 99.99,
+                 packed: bool | tuple = False):
         self.act_scales = dict(act_scales or {})
+        self.packed = packed
         self.act_bits = act_bits
         self.weight_bits = weight_bits
         self.calibrate = calibrate

@@ -1,8 +1,7 @@
 """QuantEngine: weight quantization and quantized forward passes.
 
 Port of ``cnn_quantization_tpu/engine/engine.py`` (the reference's
-``QuantizationManagerInference``, i_q_m.py:286-393) without the packed-int4
-serving options (ROADMAP Queue 1 item 6).  Parameters are a ``state_dict``
+``QuantizationManagerInference``, i_q_m.py:286-393).  Parameters are a ``state_dict``
 (name -> tensor) in torchvision naming with OIHW conv and [out, in] linear
 weights; a forward runs the model's module tree on them with
 ``torch.func.functional_call``, the counterpart of ``model.apply``.  A
@@ -26,9 +25,6 @@ from ..ops.quantizer import quantize_weight
 from ..utils.device import as_f32, nhwc_to_nchw
 from .context import CollectContext, QuantizeContext, ServingInt8Context, TapContext
 from .policy import QuantPolicy, parse_qtype_bits
-
-_PACKED_LATER = ('packed-int4 serving is not ported yet: ROADMAP Queue 1 item 6 '
-                 '(W4A4 packed serving)')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,19 +113,25 @@ class QuantEngine:
         return min(act, 8), min(weight, 8)
 
     def make_forward(self, quantized: bool | str = True, qparams=None,
-                     act_scales=None, packed: bool = False) -> Callable:
+                     act_scales=None, packed: bool | tuple = False) -> Callable:
         """f(params, stats, images) -> (logits, aux).  ``images`` are NHWC, as
         the JAX package takes them; the model runs them as an NCHW
         channels_last view on its device.  ``stats`` is the calibration dict
         or None; ``qparams`` (from ``freeze_qparams``) enables the frozen path
         per site.  ``quantized='serving_int8'`` runs the true-integer path;
         ``act_scales`` (from ``freeze_serving_scales``) freezes its activation
-        scales, removing the per-conv dynamic abs-max pass."""
-        if packed is not False:
-            raise NotImplementedError(_PACKED_LATER)
+        scales, removing the per-conv dynamic abs-max pass.  ``packed`` (True,
+        or a tuple of 1-based stages) asks for the W4A4 packed trunk: the 1x1
+        convs of a Bottleneck ResNet as int4-packed GEMMs, block boundaries two
+        codes to a byte.  It engages only with scales frozen with
+        ``packed=True`` and needs activations of at most 4 bits: the packed
+        epilogue clamps codes to +-7 whatever the grid."""
         serving = quantized == 'serving_int8'
         if serving:
             act_bits, weight_bits = self._serving_bits()
+            if packed and act_bits > 4:
+                raise ValueError(f'packed serving stores 4-bit codes; the policy asks for '
+                                 f'{act_bits}-bit activations (qtype={self.policy.qtype!r})')
             # frozen scales live on the device from here on: no host-to-device
             # copy per forward
             scales = {k: as_f32(v, self.device) for k, v in (act_scales or {}).items()}
@@ -138,7 +140,7 @@ class QuantEngine:
         def fwd(params, stats, images):
             if serving:
                 ctx = ServingInt8Context(act_scales=scales, act_bits=act_bits,
-                                         weight_bits=weight_bits)
+                                         weight_bits=weight_bits, packed=packed)
             elif quantized and self.policy.qtype is not None:
                 ctx = QuantizeContext(self.policy, stats=stats,
                                       ignore_ids=self.ignore_ids, qparams=qparams)
@@ -204,9 +206,12 @@ class QuantEngine:
 
         Returns {site id: float, or a float32 ``[in_ch]`` vector for grouped
         conv inputs}; ``linear*``, ``conv0_*`` and ``*:out`` sites always use
-        the full int8 grid."""
-        if packed is not False:
-            raise NotImplementedError(_PACKED_LATER)
+        the full int8 grid.  ``packed=True`` also emits, for every ``*:out``
+        site (a downsample conv's identity codes), a ``<site>:out:packed``
+        scale on the activation-bit grid, which the packed trunk stores those
+        codes at.  The distinct key keeps the plain path's full-int8 identity
+        grid and makes provenance structural: the packed trunk requires the
+        ``:out:packed`` keys, which only this call with ``packed=True`` emits."""
         if mode not in ('max', 'percentile', 'aciq'):
             raise ValueError(f'unknown serving calibration mode {mode!r}')
         act_bits, weight_bits = self._serving_bits()
@@ -245,8 +250,12 @@ class QuantEngine:
                 clip = np.maximum.reduce(stats['pq'])
             else:
                 clip = np.minimum(ALPHA_LAPLACE[bits] * np.mean(stats['b'], axis=0), absmax)
-            val = np.maximum(clip / qmax, 1e-8)
-            frozen[site_id] = float(val) if np.ndim(val) == 0 else val.astype(np.float32)
+            targets = {site_id: qmax}
+            if packed and site_id.endswith(':out'):
+                targets[site_id + ':packed'] = 2.0 ** (act_bits - 1) - 1.0
+            for key, q in targets.items():
+                val = np.maximum(clip / q, 1e-8)
+                frozen[key] = float(val) if np.ndim(val) == 0 else val.astype(np.float32)
         return frozen
 
     def freeze_qparams(self, stats, input_shape=None):

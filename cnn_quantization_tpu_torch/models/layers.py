@@ -1,15 +1,15 @@
 """Layer primitives with quantization tap sites (NCHW, OIHW).
 
 Port of ``cnn_quantization_tpu/models/layers.py`` (the reference's ``*WithId``
-intercepting layers, inference_quantization_manager.py:28-283) without the
-packed-int4 serving parts (ROADMAP Queue 1 item 6).  Each layer carries a
-static ``Site`` and calls the explicit ``TapContext`` on its output.
+intercepting layers, inference_quantization_manager.py:28-283).  Each layer
+carries a static ``Site`` and calls the explicit ``TapContext`` on its output.
 Activations are logical NCHW (channels_last in memory), conv weights OIHW,
 linear weights [out, in].  Float convs stay ``F.conv2d`` and float linears
 ``F.linear``, as the JAX package leaves them to XLA outside any Pallas kernel;
 under a ``ServingInt8Context`` convs and linears run true-int8 arithmetic
 through the hand-written kernels (``ops/kernels/int_conv.py``,
-``ops/kernels/int_matmul.py``).
+``ops/kernels/int_matmul.py``), and in W4A4 packed serving the 1x1 convs of a
+Bottleneck trunk run as the int4-packed GEMM (``ops/kernels/int4_matmul.py``).
 """
 
 from __future__ import annotations
@@ -21,10 +21,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..engine.context import Site, TapContext
-from ..ops.kernels import int_conv, int_matmul
-
-_PACKED_LATER = ('the packed-int4 serving orchestration is not ported yet: '
-                 'ROADMAP Queue 1 item 6 (W4A4 packed serving)')
+from ..ops.kernels import int4_matmul, int_conv, int_matmul
+from ..utils.device import as_f32
 
 
 class QTensor(NamedTuple):
@@ -38,6 +36,22 @@ class QTensor(NamedTuple):
 
     def dequant(self, dtype=torch.float32):
         return (self.codes.float() * self.scale).to(dtype)
+
+
+class PackedQTensor(NamedTuple):
+    """Int4 codes packed two to a byte (W4A4 packed serving): the channel
+    dimension is HALVED against the float tensor, ``[N, C/2, H, W]`` int8 in
+    channels_last memory, so the bytes are the row-major ``[N*H*W, C/2]``
+    matrix the int4 GEMM takes.  The layout is the kernel's group-local
+    split-half convention (ops/kernels/int4_matmul.py); only that GEMM produces
+    and consumes these on the hot path, ``dequant`` is for boundary cases (tap
+    inspection)."""
+    codes: torch.Tensor   # int8 bytes, [N, C/2, H, W]
+    scale: torch.Tensor   # float32 scalar
+
+    def dequant(self, dtype=torch.float32):
+        codes = int4_matmul.unpack_int4(self.codes.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return (codes.float() * self.scale).to(dtype)
 
 
 class SiteNamer:
@@ -123,9 +137,12 @@ class QConv(nn.Module):
     def forward(self, x, ctx: TapContext, residual=None, out_spec=None,
                 fuse_relu: bool = False):
         """``residual``/``out_spec``/``fuse_relu`` are the packed-serving block
-        orchestration's inputs; they raise until that path is ported."""
-        if residual is not None or out_spec is not None or fuse_relu:
-            raise NotImplementedError(_PACKED_LATER)
+        orchestration's inputs (models/resnet.py Bottleneck): ``residual`` is a
+        ``PackedQTensor`` added (dequantized) before the fused ReLU inside the
+        int4 GEMM's epilogue; ``out_spec = ('int8' | 'packed', scale)``
+        requantizes the output to codes at the NEXT consumer's frozen scale.
+        Outside the true-int serving path they raise: nothing there could
+        honour them."""
         weight = self.weight
         # the s2d stem: prepare_serving_params(s2d_stem=True) stored the 7x7/2
         # stem kernel as an equivalent int8 [O, 12, 4, 4] stride-1 kernel
@@ -133,16 +150,38 @@ class QConv(nn.Module):
                     and tuple(weight.shape[1:]) == (12, 4, 4))
         if getattr(ctx, 'int8_serving', False) and (stem_s2d or not (
                 self.in_ch == 3 and getattr(ctx, 'bf16_first_conv', True))):
-            return _tap(ctx, self._serve(x, ctx, stem_s2d), self.site)
-        if isinstance(x, QTensor):  # safety: dequantize codes on the float path
+            return _tap(ctx, self._serve(x, ctx, stem_s2d, residual, out_spec, fuse_relu),
+                        self.site)
+        if residual is not None or out_spec is not None or fuse_relu:
+            raise ValueError('residual/out_spec/fuse_relu need the true-int serving path '
+                             '(a ServingInt8Context)')
+        if isinstance(x, (QTensor, PackedQTensor)):  # safety: dequantize on the float path
             x = x.dequant()
         y = F.conv2d(x, weight, self.bias, self.strides, self.padding, groups=self.groups)
         return _tap(ctx, y, self.site)
 
-    def _serve(self, x, ctx, stem_s2d: bool):
+    def _serve(self, x, ctx, stem_s2d: bool, residual=None, out_spec=None,
+               fuse_relu: bool = False):
         """True-int path: per-tensor (per-group for grouped convs) activation
         quantization, frozen if the context holds a scale for this site, and
         per-channel int8 weights through the int8 kernels."""
+        kernel_1x1 = tuple(self.weight.shape[2:]) == (1, 1)
+        if (getattr(ctx, 'packed', False) and kernel_1x1 and self.in_ch != 3
+                and self.groups == 1 and self.weight.dtype == torch.int8
+                and (out_spec is not None or residual is not None)):
+            # only when the block orchestrator drives this conv (Bottleneck
+            # passes out_spec/residual); a stray 1x1 conv in packed mode (a
+            # BasicBlock downsample) stays on the plain path
+            return self._packed_gemm_1x1(x, ctx, residual, out_spec, fuse_relu)
+        # past the packed branch: fail loudly rather than drop a residual or a
+        # ReLU the packed orchestration handed over (packed mode on float
+        # params, for one)
+        if residual is not None or isinstance(x, PackedQTensor):
+            raise ValueError('a packed residual or input needs the packed 1x1 GEMM path '
+                             '(prepare_serving_params + scales frozen with packed=True)')
+        if fuse_relu and out_spec is None:
+            raise ValueError('fuse_relu without out_spec would be dropped outside the '
+                             'packed 1x1 GEMM path')
         prequant = isinstance(x, QTensor)
         if prequant:
             x, pre_scale = x.codes, x.scale
@@ -193,11 +232,24 @@ class QConv(nn.Module):
             codes = int_matmul.quantize_sym_codes(x, act_scale)
             y = int_conv.int8_conv(s2d_stem_input(codes), w_codes, w_scale, self.bias,
                                    strides=(1, 1), padding=(0, 0), act_bits=8,
-                                   act_scale=act_scale)
+                                   act_scale=act_scale, fuse_relu=fuse_relu)
         else:
+            # with an out_spec the ReLU ahead of the requant runs in the conv
+            # kernel's epilogue (max(., 0) gives the same values either way)
             y = int_conv.int8_conv(x if prequant else x.float(), w_codes, w_scale, self.bias,
                                    strides=self.strides, padding=self.padding,
-                                   groups=self.groups, act_bits=act_bits, act_scale=act_scale)
+                                   groups=self.groups, act_bits=act_bits, act_scale=act_scale,
+                                   fuse_relu=fuse_relu)
+        if out_spec is not None:
+            # packed-serving orchestration (Bottleneck conv2): requantize the
+            # int8 conv's output to codes at the NEXT consumer's frozen scale;
+            # elementwise, outside any kernel as in the JAX package
+            mode, oscale = out_spec[0], as_f32(out_spec[1], y.device)
+            codes = int_matmul.quantize_sym_codes(y, oscale, act_bits)
+            if mode == 'packed':
+                packed = int4_matmul.pack_int4(codes.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                return PackedQTensor(packed, oscale)
+            return QTensor(codes, oscale)
         if self.out_codes and site_id is not None:
             out_scale = getattr(ctx, 'act_scales', {}).get(site_id + ':out')
             if out_scale is None and getattr(ctx, 'calibrate', False):
@@ -207,6 +259,48 @@ class QConv(nn.Module):
                 # grid whatever act_bits is (they are only dequantized for the
                 # residual add, never fed to an int conv)
                 y = QTensor(int_matmul.quantize_sym_codes(y, out_scale), out_scale)
+        return y
+
+    def _packed_gemm_1x1(self, x, ctx, residual, out_spec, fuse_relu: bool):
+        """Packed-serving 1x1 conv == the int4 GEMM: packed (or plain int8)
+        codes in, fused dequant / residual / ReLU / requant epilogue, codes
+        out, so block boundaries cross device memory at 4 bits
+        (ops/kernels/int4_matmul.py); orchestrated by models/resnet.py
+        Bottleneck.  A stride slices the rows spatially ahead of the GEMM."""
+        act_bits = getattr(ctx, 'act_bits', 8)
+        if isinstance(x, PackedQTensor):
+            a, a_scale, a_packed = x.codes, x.scale, True
+        elif isinstance(x, QTensor):
+            a, a_scale, a_packed = x.codes, x.scale, False
+        else:
+            a_scale = getattr(ctx, 'act_scales', {}).get(
+                self.site.id if self.site is not None else None)
+            if a_scale is None:
+                raise ValueError('packed serving requires frozen activation scales')
+            a_scale = as_f32(a_scale, x.device)
+            a, a_packed = int_matmul.quantize_sym_codes(x, a_scale, act_bits), False
+        sh, sw = self.strides
+        if (sh, sw) != (1, 1):
+            a = a[:, :, ::sh, ::sw]
+        n, cc, h, w = a.shape
+        alpha = a_scale * self.w_scale.float()
+        res2 = res_scale = None
+        if residual is not None:
+            res2 = residual.codes.permute(0, 2, 3, 1).reshape(n * h * w, -1)
+            res_scale = residual.scale
+        mode, out_scale = 'f32', None
+        if out_spec is not None:
+            mode, out_scale = out_spec[0], as_f32(out_spec[1], a.device)
+        y2 = int4_matmul.int4_matmul(
+            a.permute(0, 2, 3, 1).reshape(n * h * w, cc),
+            self.weight.reshape(self.features, self.in_ch).t(), alpha, self.bias,
+            residual=res2, res_scale=res_scale, out_scale=out_scale, a_packed=a_packed,
+            fuse_relu=fuse_relu, out_mode=mode, out_qmax=2.0 ** (act_bits - 1) - 1.0)
+        y = y2.view(n, h, w, -1).permute(0, 3, 1, 2)
+        if mode == 'packed':
+            return PackedQTensor(y, out_scale)
+        if mode == 'int8':
+            return QTensor(y, out_scale)
         return y
 
 

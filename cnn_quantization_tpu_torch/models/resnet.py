@@ -1,8 +1,7 @@
-"""ResNet family (NCHW in channels_last memory): the simulation path and the
-int8-resident true-int8 serving path.
+"""ResNet family (NCHW in channels_last memory): the simulation path, the
+int8-resident true-int8 serving path and the W4A4 packed serving trunk.
 
-Port of ``cnn_quantization_tpu/models/resnet.py`` without the packed-int4
-serving orchestration (ROADMAP Queue 1 item 6).  Module and parameter names follow
+Port of ``cnn_quantization_tpu/models/resnet.py``.  Module and parameter names follow
 torchvision (``layer1.0.conv1.weight``, ``layer1.0.downsample.0.weight``), and
 site ids replicate the reference's construction-order numbering: downsample
 convs are numbered before the convs of a stage's first block.  BN is folded
@@ -18,7 +17,8 @@ from torch import nn
 
 from ..engine.context import Site, TapContext
 from ..ops.kernels.int_matmul import quantize_sym_codes
-from .layers import QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool, QTensor, SiteNamer, relu
+from .layers import (PackedQTensor, QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool, QTensor,
+                     SiteNamer, relu)
 
 
 def _dequant_identity(identity):
@@ -128,8 +128,27 @@ class Bottleneck(nn.Module):
         if s.has_downsample:
             self.downsample = _downsample(s)
 
-    def forward(self, x, ctx: TapContext):
+    def forward(self, x, ctx: TapContext, out_spec=False):
+        """``out_spec``: False = the plain path; in packed serving ``ResNet``
+        passes ('packed' | 'int8', the next block's input scale), or None for
+        the last block (float out)."""
         fold = self.spec.fold_bn
+        if out_spec is not False and getattr(ctx, 'packed', False):
+            # W4A4 packed serving (orchestrated by ResNet.forward): conv1,
+            # conv3 and the downsample run as int4 GEMMs, conv2 stays the int8
+            # conv and emits codes at conv3's frozen scale; the residual
+            # identity is added packed inside conv3's epilogue.  Every tensor
+            # between convs is int8 codes, every block boundary 4-bit packed.
+            scales = ctx.act_scales
+            (c1, _), (c2, _), (c3, _) = self.spec.conv_sites
+            out = self.conv1(x, ctx, fuse_relu=True, out_spec=('int8', scales[c2.id]))
+            out = self.conv2(out, ctx, fuse_relu=True, out_spec=('int8', scales[c3.id]))
+            identity = x   # packed codes from the previous block
+            if self.spec.has_downsample:
+                dc = self.spec.ds_sites[0]
+                identity = self.downsample[0](
+                    x, ctx, out_spec=('packed', scales[dc.id + ':out:packed']))
+            return self.conv3(out, ctx, residual=identity, fuse_relu=True, out_spec=out_spec)
         x, identity = _serving_block_input(x, ctx, self.spec.conv_sites[0][0])
         out = self.conv1(x, ctx)
         if not fold:
@@ -156,6 +175,7 @@ class ResNet(nn.Module):
             self.bn1 = QBatchNorm(64, site=bn_site)
         self.maxpool = QMaxPool(3, 2, 1, site=mp_site)
         self.stages = len(stage_specs)
+        self.stage_specs = stage_specs
         self.first_block_site = stage_specs[0][0].conv_sites[0][0]
         for li, stage in enumerate(stage_specs):
             block = Bottleneck if stage[0].bottleneck else BasicBlock
@@ -177,8 +197,26 @@ class ResNet(nn.Module):
             if scale is not None:
                 x = QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
         x = self.maxpool(x, ctx)
-        for li in range(self.stages):
-            x = _run(getattr(self, f'layer{li + 1}'), x, ctx)
+        pk_stages = self._packed_stages(ctx)
+        # (1-based stage, block module) along the trunk
+        trunk = [(li + 1, blk) for li in range(self.stages)
+                 for blk in getattr(self, f'layer{li + 1}')]
+        for i, (stage, blk) in enumerate(trunk):
+            if stage not in pk_stages:
+                # a packed -> plain stage boundary arrives as int8 codes
+                # (out_spec 'int8' below), never as a PackedQTensor
+                if isinstance(x, PackedQTensor):
+                    raise RuntimeError('a plain block was handed packed codes')
+                x = blk(x, ctx)
+                continue
+            out_spec = None   # the last block: float out to the avgpool
+            if i + 1 < len(trunk):
+                nxt_stage, nxt = trunk[i + 1]
+                # into a packed block the boundary crosses device memory 4-bit
+                # packed; into a plain block as int8 codes (its QTensor input)
+                out_spec = ('packed' if nxt_stage in pk_stages else 'int8',
+                            ctx.act_scales[nxt.spec.conv_sites[0][0].id])
+            x = blk(x, ctx, out_spec=out_spec)
         x = self.avgpool(x, ctx)
         if x.shape[2:] != (1, 1):
             # the JAX model flattens NHWC (h, w, c); NCHW flattens (c, h, w),
@@ -187,6 +225,33 @@ class ResNet(nn.Module):
                              f'{tuple(x.shape[2:])})')
         x = self.fc(x.flatten(1), ctx)
         return x.float()
+
+    def _packed_stages(self, ctx) -> tuple:
+        """The 1-based stages that run the packed orchestration under ``ctx``.
+
+        W4A4 packed serving is all-or-nothing across the trunk: every block
+        must be a BN-folded Bottleneck with group-alignable output channels
+        and every frozen scale it needs must be present (block input scales,
+        conv2/conv3 input scales, the downsample ':out:packed' scales; the
+        latter exist ONLY when ``freeze_serving_scales`` ran with
+        ``packed=True``, so int8-grid frozen scales can never engage the
+        packed epilogue).  Otherwise the model takes the plain int8-resident
+        path everywhere.  ``ctx.packed`` is True (all stages) or a tuple of
+        stages ((1,) packs stage 1 only, the rest stay plain)."""
+        pk = getattr(ctx, 'packed', False)
+        stages = tuple(pk) if isinstance(pk, (tuple, list)) else ((1, 2, 3, 4) if pk else ())
+        blocks = [sp for stage in self.stage_specs for sp in stage]
+        if not (stages and self.fold_bn
+                and all(sp.bottleneck and sp.out_planes % 256 == 0 for sp in blocks)):
+            return ()
+        need = []
+        for sp in blocks:
+            need += [site.id for site, _ in sp.conv_sites]
+            if sp.has_downsample:
+                need.append(sp.ds_sites[0].id + ':out:packed')
+        scales = getattr(ctx, 'act_scales', {})
+        return stages if all(n in scales for n in need) else ()
+
 
 
 _LAYER_CFG = {

@@ -19,7 +19,10 @@ memory rate bounds it, from C = 256 on the int8 tensor-core rate.
 a plain matrix product (1x1, stride 1, no padding, one group) goes to the int8
 GEMM kernel (``int_matmul.int8_matmul_dequant``), as the 1x1 shortcut of the
 JAX package's ``int8_conv_im2col`` (:139-141) does; every other shape goes to
-``int8_conv_dequant``.
+``int8_conv_dequant``.  ``int8_conv_im2col`` (the JAX package's explicit
+lowering, :126-154) writes the patches to device memory and multiplies them
+with the int8 GEMM kernel; it computes what ``int8_conv`` computes, bit for
+bit, and is kept as a cross-check of the implicit-GEMM kernel.
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
 they launch the kernels or raise.  ``int8_conv_dequant.launches`` counts
@@ -198,3 +201,36 @@ def int8_conv(x, w_codes, w_scale, bias=None, *, kernel_size=None, strides=(1, 1
         return out.view(n, h, w, features).permute(0, 3, 1, 2)
     return int8_conv_dequant(x_q, w_codes, alpha, bias, strides=strides, padding=padding,
                              groups=groups, fuse_relu=fuse_relu, out_dtype=out_dtype)
+
+
+def _extract_patches(x_q, kh: int, kw: int, strides, padding) -> torch.Tensor:
+    """NCHW int8 codes -> [N*Ho*Wo, KH*KW*C] patches, feature order
+    (kh, kw, c), with (Ho, Wo).  Zero padding in the integer domain (exact at
+    zero point 0); the windows are strided views until the final reshape
+    copies them (``F.unfold`` itself takes floating types only)."""
+    (sh, sw), (ph, pw) = strides, padding
+    xp = F.pad(x_q, (pw, pw, ph, ph))
+    win = xp.unfold(2, kh, sh).unfold(3, kw, sw)        # [N, C, Ho, Wo, KH, KW]
+    n, c, ho, wo = win.shape[:4]
+    return win.permute(0, 2, 3, 4, 5, 1).reshape(n * ho * wo, kh * kw * c), (ho, wo)
+
+
+def int8_conv_im2col(x, w_codes, w_scale, bias=None, *, strides=(1, 1), padding=(0, 0),
+                     act_bits: int = 8, act_scale=None, fuse_relu: bool = False,
+                     out_dtype=torch.float32):
+    """im2col + the int8 GEMM kernel: the explicit lowering of ``int8_conv``
+    for ungrouped convs with a per-tensor activation scale.  ``w_codes``
+    [O, I, KH, KW] int8 as for ``int8_conv``."""
+    strides, padding = tuple(strides), tuple(padding)
+    features, ic, kh, kw = w_codes.shape
+    if x.shape[1] != ic:
+        raise ValueError('groups unsupported on the im2col path')
+    x_q, x_scale = _quantize_act(x, act_bits, act_scale)
+    if x_scale.ndim:
+        raise ValueError('the im2col path takes a per-tensor activation scale')
+    n = x_q.shape[0]
+    patches, (ho, wo) = _extract_patches(x_q, kh, kw, strides, padding)
+    w2 = w_codes.permute(0, 2, 3, 1).reshape(features, kh * kw * ic)   # K runs (kh, kw, c)
+    out = int_matmul.int8_matmul_dequant(patches, w2.t(), x_scale * w_scale.float(), bias,
+                                         fuse_relu=fuse_relu, out_dtype=out_dtype)
+    return out.view(n, ho, wo, features).permute(0, 3, 1, 2)

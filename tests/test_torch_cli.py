@@ -82,9 +82,13 @@ def test_cli_weights_fold_bn_like_jax(cli_env, capsys):
     assert 'random init' not in capsys.readouterr().out
 
 
+# the test ids are kept as they were when both packed flags were still unported
+# ("flag0-item 6", "flag1-item 6"): the flags run now, and what is left to exit
+# for is their misuse, which the JAX CLI silently ignores
 @pytest.mark.parametrize('flag,item', [
-    (['--serving_int8', '--serving_packed'], 'item 6'),
-    (['--serving_packed_stages', '1,2'], 'item 6'),
+    (['--serving_packed'], '--serving_packed needs --serving_int8'),
+    (['--serving_int8', '--serving_packed_stages', '1,2'],
+     '--serving_packed_stages needs --serving_packed'),
     (['-kld'], 'item 8'),
     (['-mtq'], 'item 12'),
     (['-ep'], 'item 14'),
@@ -93,10 +97,42 @@ def test_cli_weights_fold_bn_like_jax(cli_env, capsys):
     (['-p', '5'], 'item 14'),
     (['--mesh_model', '2'], 'item 9'),
     (['-j', '8'], 'item 13'),
-])
+], ids=['flag0-item 6', 'flag1-item 6', 'flag2-item 8', 'flag3-item 12', 'flag4-item 14',
+        'flag5-item 14', 'flag6-item 14', 'flag7-item 14', 'flag8-item 9', 'flag9-item 13'])
 def test_cli_unported_flags_exit(cli_env, flag, item):
     with pytest.raises(SystemExit, match=item):
         main(BASE + ['--qtype', 'int4'] + flag)
+
+
+PACKED = ['--device', 'cpu', '-a', 'resnet50', '-b', '2', '--subset', '2', '--input_size', '64',
+          '--data', '/nonexistent', '--qtype', 'int4', '-qw', 'int4', '--serving_int8']
+
+
+@pytest.mark.parametrize('extra,gemms', [
+    (['--serving_packed'], 36),
+    (['--serving_packed', '--serving_packed_stages', '1,3'], 20),
+], ids=['all_stages', 'stages_1_3'])
+def test_cli_serving_packed(cli_env, capsys, monkeypatch, extra, gemms):
+    """``--serving_int8 --serving_packed [--serving_packed_stages 1,3]`` runs
+    ResNet-50 at 64x64 on the CPU, prints the result line, and the one
+    evaluation batch goes through the int4 GEMM as often as the stages say."""
+    from cnn_quantization_tpu_torch.ops.kernels import int4_matmul as i4
+    calls = []
+    real = i4.int4_matmul
+    monkeypatch.setattr(i4, 'int4_matmul', lambda *a, **k: (calls.append(1), real(*a, **k))[1])
+    assert main(PACKED + extra) == 0
+    out, res = _last_json(capsys)
+    assert 'serving-int8: calibrating frozen activation scales' in out
+    assert {'top1', 'top5', 'loss', 'images_per_sec'} <= set(res)
+    assert res['loss'] > 0 and len(calls) == gemms
+
+
+@pytest.mark.parametrize('stages', [',', '0,5', '1,x'],
+                         ids=['empty', 'out_of_range', 'not_a_number'])
+def test_cli_serving_packed_stages_must_list_stages(cli_env, stages):
+    with pytest.raises(SystemExit, match='--serving_packed_stages must list stages 1-4'):
+        main(BASE + ['--qtype', 'int4', '-qw', 'int4', '--serving_int8', '--serving_packed',
+                     '--serving_packed_stages', stages])
 
 
 def test_cli_existing_imagenet_dir_exits(cli_env):

@@ -19,6 +19,7 @@ from jax import lax
 from cnn_quantization_tpu.engine.engine import s2d_stem_input as j_s2d_input
 from cnn_quantization_tpu.engine.engine import s2d_stem_kernel as j_s2d_kernel
 from cnn_quantization_tpu.ops.kernels.int_conv import int8_conv as j_int8_conv
+from cnn_quantization_tpu.ops.kernels.int_conv import int8_conv_im2col as j_im2col
 from cnn_quantization_tpu.ops.kernels.int_conv import prepare_int8_weights as j_prepare
 from cnn_quantization_tpu.ops.kernels.int_matmul import int8_matmul_dequant as j_matmul
 from cnn_quantization_tpu.ops.kernels.int_matmul import quantize_sym_int8 as j_quantize
@@ -242,6 +243,27 @@ def test_conv_wrapper_contract():
         ic.int8_conv_dequant(x, w, torch.ones(6), groups=2)
     with pytest.raises(TypeError, match='int8'):
         ic.int8_conv_dequant(x.float(), w, torch.ones(6))
+
+
+@pytest.mark.parametrize('kh,stride,pad', [(3, 1, 1), (3, 2, 1), (1, 1, 0), (1, 2, 0)])
+def test_int8_conv_im2col_equals_int8_conv_and_matches_jax(kh, stride, pad):
+    """The explicit lowering (patches in memory + the int8 GEMM) computes what
+    ``int8_conv`` computes, bit for bit (the same exact sums, the same
+    epilogue), and matches JAX's im2col + Pallas GEMM (interpret mode) within
+    the conv tests' 1e-6."""
+    rng = np.random.RandomState(6)
+    x, w, bias = _conv_case(rng, 2, 9, 16, 24, kh, 1)
+    w_codes, w_scale = ic.prepare_int8_weights(_oihw(w))
+    kw = dict(strides=(stride, stride), padding=(pad, pad), fuse_relu=True)
+    got = ic.int8_conv_im2col(_nchw(x), w_codes, w_scale, torch.from_numpy(bias), **kw)
+    same = ic.int8_conv(_nchw(x), w_codes, w_scale, torch.from_numpy(bias), **kw)
+    assert torch.equal(got, same)
+    j_codes, j_scale = j_prepare(jnp.asarray(w))
+    want = np.asarray(j_im2col(jnp.asarray(x), j_codes, j_scale, jnp.asarray(bias),
+                               interpret=True, **kw))
+    np.testing.assert_allclose(_nhwc(got), want, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match='groups unsupported'):
+        ic.int8_conv_im2col(_nchw(x)[:, :8], w_codes, w_scale)
 
 
 # ------------------------------------------------- s2d stem and percentile

@@ -314,21 +314,37 @@ def test_bridge_carries_prepared_tree_and_scales(serving):
 
 
 def test_packed_serving_fails_loudly(pair, serving, batches):
+    """Packed serving is ported (``tests/test_torch_packed_serving.py``); what
+    it cannot honour still fails loudly: 8-bit activations under ``packed``,
+    and a conv handed a residual, an ``out_spec`` or a fused ReLU off the
+    packed path.  On this BasicBlock trunk ``packed`` itself is a no-op."""
     s = serving['w4a4']
-    with pytest.raises(NotImplementedError, match='item 6'):
-        s.eng.make_forward(quantized='serving_int8', packed=True)
-    with pytest.raises(NotImplementedError, match='item 6'):
-        s.eng.make_forward(quantized='serving_int8', packed=(1, 3))
-    with pytest.raises(NotImplementedError, match='item 6'):
-        s.eng.freeze_serving_scales(s.sp, batches, packed=True)
-    with pytest.raises(NotImplementedError, match='item 6'):
-        evaluate(s.eng, s.sp, batches, quantized='serving_int8', packed=True)
+    x = batches[0][0]
+    scales = s.eng.freeze_serving_scales(s.sp, batches, packed=True)
+    assert sum(k.endswith(':out:packed') for k in scales) == 3
+    plain, _ = s.eng.make_forward(quantized='serving_int8', act_scales=scales)(s.sp, None, x)
+    for packed in (True, (1, 3)):
+        got, _ = s.eng.make_forward(quantized='serving_int8', act_scales=scales,
+                                    packed=packed)(s.sp, None, x)
+        assert torch.equal(got, plain)
+    res = evaluate(s.eng, s.sp, batches, quantized='serving_int8', act_scales=scales,
+                   packed=True)
+    assert np.isfinite(res['loss'])
+    s8 = serving['w8a8']
+    with pytest.raises(ValueError, match='4-bit codes'):
+        s8.eng.make_forward(quantized='serving_int8', packed=True)
+    with pytest.raises(ValueError, match='4-bit codes'):
+        evaluate(s8.eng, s8.sp, batches, quantized='serving_int8', packed=(1, 3))
     conv = pair.model.layer1[0].conv1
     x = torch.zeros(1, 64, 8, 8)
     ctx = ServingInt8Context()
-    for kw in (dict(out_spec=('int8', 1.0)), dict(residual=x), dict(fuse_relu=True)):
-        with pytest.raises(NotImplementedError, match='item 6'):
+    for kw in (dict(residual=QTensor(x.to(torch.int8), torch.tensor(1.0))),
+               dict(fuse_relu=True)):
+        with pytest.raises(ValueError, match='packed 1x1 GEMM path'):
             conv(x, ctx, **kw)
+    for kw in (dict(out_spec=('int8', 1.0)), dict(fuse_relu=True)):
+        with pytest.raises(ValueError, match='true-int serving path'):
+            conv(x, layers.TapContext(), **kw)
 
 
 CLI = ['--device', 'cpu', '-a', ARCH, '-b', '2', '--subset', '4', '--input_size', str(SIZE),
