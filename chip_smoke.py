@@ -4,8 +4,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
 source, started together), holds each against its plain PyTorch version at the
-shapes the main paths give it, and drives the three main paths at 224x224,
-batch 64, checking that each went through its kernels:
+shapes the main paths give it, and drives the four main paths at 224x224,
+checking that each went through its kernels (five kernels in all: fake-quant,
+int8 GEMM, int8 conv, int4-packed GEMM, stream copy).  The first three paths
+run at batch 64:
 
   * simulation: ResNet-50 W4A4 headline recipe (weight pass, statistics
     collection, .npz round trip, qparam freeze, frozen evaluation, one dynamic
@@ -17,7 +19,15 @@ batch 64, checking that each went through its kernels:
   * W4A4 packed serving: ResNet-50 W4A4 (weight pass, serving preparation,
     scale freeze with the packed grid, frozen packed evaluation; one forward
     each for stages (1,) and (2, 3) and for scales without the packed keys)
-    through the int4-packed GEMM, the int8 conv and the int8 GEMM.
+    through the int4-packed GEMM, the int8 conv and the int8 GEMM;
+  * the throughput bench (``python3 -m cnn_quantization_tpu_torch.bench``):
+    ResNet-50 with bfloat16 activations at batch 128 (W4A4 simulation, bf16
+    baseline, W8A8 serving, W4A4 serving plain and packed), the batch sweep,
+    MobileNet-v2 serving with its per-channel depthwise scales, and the
+    probes, among them the memory-rate probe through the stream-copy kernel.
+    The bench runs twice: first with every kernel wrapper's first call of
+    each distinct signature held against the plain version on the same
+    inputs, then counted, every launch against the models' site tables.
 
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
 and ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -27,9 +37,11 @@ it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -38,11 +50,13 @@ from unittest import mock
 import numpy as np
 import torch
 
+from cnn_quantization_tpu_torch import bench
 from cnn_quantization_tpu_torch.calib.calibrator import (collect_statistics, load_stats,
                                                          save_stats)
 from cnn_quantization_tpu_torch.data.synthetic import synthetic_batches
 from cnn_quantization_tpu_torch.engine import QuantEngine, QuantPolicy
 from cnn_quantization_tpu_torch.engine.evaluate import evaluate
+from cnn_quantization_tpu_torch.engine.context import QuantizeContext, ServingInt8Context
 from cnn_quantization_tpu_torch.engine.qparams import discover_sites
 from cnn_quantization_tpu_torch.models import build_model
 from cnn_quantization_tpu_torch.models.layers import (PackedQTensor, QConv, QLinear, QMaxPool,
@@ -52,12 +66,16 @@ from cnn_quantization_tpu_torch.ops.kernels import fake_quant as fq
 from cnn_quantization_tpu_torch.ops.kernels import int4_matmul as i4
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
+from cnn_quantization_tpu_torch.ops.kernels import stream_copy as sc
 from cnn_quantization_tpu_torch.ops.quant_math import affine_qparams
+from cnn_quantization_tpu_torch.utils.device import card_name_and_power
+from cnn_quantization_tpu_torch.utils.profiling import device_ms as cuda_ms
+from cnn_quantization_tpu_torch.utils.profiling import device_ms_by_class, device_time_by_kernel
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense
-SOURCES = ('fake_quant', 'int8_gemm', 'int8_conv', 'int4_gemm')
+SOURCES = ('fake_quant', 'int8_gemm', 'int8_conv', 'int4_gemm', 'stream_copy')
 W8A8 = dict(qtype='int8', qweight='int8')
 W4A4 = dict(qtype='int4', qweight='int4')
 HEADLINE = dict(qtype='int4', qweight='int4', pcq_weights=True, pcq_act=True,
@@ -67,9 +85,11 @@ STAGE1_ACT = (64, 256, 56, 56)   # ResNet-50 layer1 output at 224x224, batch 64
 REPLACES = 'cnn_quantization_tpu/ops/kernels/fake_quant.py:63'
 REPLACES_GEMM = 'cnn_quantization_tpu/ops/kernels/int_matmul.py:58'
 REPLACES_CONV = 'cnn_quantization_tpu/ops/kernels/int_conv.py:63'
-# the serving path's own shapes at 224x224, batch 64 (M = batch * H * W)
+# the serving path's own shapes at 224x224, batch 64 (M = batch * H * W), and
+# three of MobileNet-v2's at batch 128: K = 24 (no multiple of 16: the loader's
+# byte-wise path), N = 16 and N = 24 (ragged column tiles)
 GEMM_SHAPES = ((200704, 64, 256), (200704, 256, 64), (3136, 512, 2048), (3136, 2048, 512),
-               (64, 2048, 1000))
+               (64, 2048, 1000), (401408, 24, 144), (1605632, 32, 16), (401408, 144, 24))
 # (input NCHW, out channels, kernel, stride, padding, groups, per-group scale vector)
 CONV_SHAPES = {
     '3x3_s1_c64': ((64, 64, 56, 56), 64, 3, 1, 1, 1, False),
@@ -79,9 +99,12 @@ CONV_SHAPES = {
     's2d_stem': ((64, 12, 115, 115), 64, 4, 1, 0, 1, False),
     'grouped_32': ((64, 128, 56, 56), 128, 3, 1, 1, 32, True),
     'depthwise': ((64, 96, 28, 28), 96, 3, 2, 1, 96, True),
+    # MobileNet-v2 at batch 128: its widest depthwise conv and a strided one
+    'dw_s1_c144_b128': ((128, 144, 56, 56), 144, 3, 1, 1, 144, True),
+    'dw_s2_c96_b128': ((128, 96, 112, 112), 96, 3, 2, 1, 96, True),
 }
 TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048))
-TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512')
+TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', 'dw_s1_c144_b128')
 REPLACES_INT4 = 'cnn_quantization_tpu/ops/kernels/int4_matmul.py:229'
 # the packed path's int4 GEMM calls at 224x224, batch 64: name -> (M, K, N, A
 # packed, residual, ReLU, out_mode); M = batch * H * W.  'rows' slices the rows
@@ -102,6 +125,11 @@ INT4_CASES = {
     'ragged_70_n64': (70, 512, 64, True, False, True, 'int8'),
 }
 TIMED_INT4 = ('s1_conv3', 's1_conv1', 's4_conv1', 's4_last_f32')
+REPLACES_COPY = 'bench.py:315'
+PROBE_SHAPE = (128 * 56 * 56, 256)   # the memory-rate probe's int8 tensor, 102.76 MB
+# stream-copy cases: the probe's own shape, a ragged M, a C that is no multiple of 16
+COPY_SHAPES = (PROBE_SHAPE, (1001, 256), (4097, 250), (7, 3))
+BENCH_BATCH = 128
 
 
 class SmokeFailure(Exception):
@@ -115,33 +143,6 @@ def check(cond, what):
 
 def emit(phase, **fields):
     print(json.dumps({'phase': phase, **fields}), flush=True)
-
-
-def card_name_and_power():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters=30, warmup=3, head_start=True):
-    """Mean time of ``fn()`` on the card, by CUDA events around ``iters`` calls.
-    The device first spins for some 25 ms, so the host has queued every call
-    before the first one starts: the events then bracket device work alone.
-    Without ``head_start`` a call shorter than the host's time to launch it
-    reads as that launch time instead."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if head_start:
-        torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def fake_quant_bound_ms(x, n_params):
@@ -530,20 +531,12 @@ def int8_resident_flow(eng, sp, scales, pq, images):
     conv1 and downsample conv receive a QTensor, the max-pool runs on codes.
     Also the relative error of the frozen logits to the float logits of the
     same weights (reported; bounded at resnet18 64x64 in serving_card_vs_cpu)."""
-    got_codes, pool_on_codes = {}, []
-    conv_forward, pool_forward = QConv.forward, QMaxPool.forward
-
-    def conv(self, x, ctx, **kw):
-        got_codes[self.site.id] = isinstance(x, QTensor)
-        return conv_forward(self, x, ctx, **kw)
-
-    def pool(self, x, ctx):
-        pool_on_codes.append(isinstance(x, QTensor) and x.codes.dtype == torch.int8)
-        return pool_forward(self, x, ctx)
-
-    with mock.patch.object(QConv, 'forward', conv), mock.patch.object(QMaxPool, 'forward', pool):
-        logits, aux = eng.make_forward(quantized='serving_int8', act_scales=scales)(
-            sp, None, images)
+    fwd, result = eng.make_forward(quantized='serving_int8', act_scales=scales), []
+    seen = bench.module_inputs(eng.model, lambda: result.append(fwd(sp, None, images)))
+    (logits, aux), = result
+    got_codes = {m.site.id: kind == 'codes' for m, kind, _, _ in seen if isinstance(m, QConv)}
+    pool_on_codes = [kind == 'codes' and dtype == torch.int8 for m, kind, dtype, _ in seen
+                     if isinstance(m, QMaxPool)]
     fp32, _ = eng.make_forward(quantized=False)(pq, None, images)
     block_inputs = [m.site.id for name, m in eng.model.named_modules()
                     if isinstance(m, QConv) and name.endswith(('.conv1', '.downsample.0'))]
@@ -558,12 +551,12 @@ def int8_resident_flow(eng, sp, scales, pq, images):
           f'serving forward is not int8-resident: {out}')
 
 
-def kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=False):
+def kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=False, tol=1e-6):
     """The same prepared params, scales and batch through a serving forward
     with the kernels and with all three integer wrappers patched to their
     plain versions.  The integer part is exact and the float stem is the same
-    cuDNN call in both (deterministic algorithms), so: relative error <= 1e-6,
-    argmax equal."""
+    cuDNN call in both (deterministic algorithms), so: relative error <=
+    ``tol`` (1e-6 for float32 activations), argmax equal."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     fwd = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=packed)
@@ -577,28 +570,8 @@ def kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=False):
                plain_run_launched_no_kernel=launched == kernel_launches(),
                argmax_equal=bool(torch.equal(kern.argmax(-1), plain.argmax(-1))))
     emit(phase, **out)
-    check(out['argmax_equal'] and out['rel_err'] <= 1e-6 and out['plain_run_launched_no_kernel'],
+    check(out['argmax_equal'] and out['rel_err'] <= tol and out['plain_run_launched_no_kernel'],
           f'{phase}: {out}')
-
-
-def device_time_by_kernel(fn):
-    """(host wall ms, {device record: microseconds}) of one call of ``fn``
-    under torch.profiler: kernels and copies only; a host op's entry repeats
-    the time of the kernels it launched, and 'Activity Buffer Request' is
-    CUPTI's bookkeeping record, not device work."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA \
-                or ev.key == 'Activity Buffer Request':
-            continue
-        device_us[ev.key] = device_us.get(ev.key, 0) + ev.self_device_time_total
-    return wall_ms, device_us
 
 
 def profile_frozen_step(engine, params_q, qparams, stats, images):
@@ -925,12 +898,9 @@ def profile_serving_forward(fwd, sp, images):
     wall_ms, device_us = device_time_by_kernel(lambda: fwd(sp, None, images))
     busy_ms = sum(device_us.values()) / 1e3
 
-    def total_ms(*needles):
-        return sum(us for k, us in device_us.items() if any(n in k for n in needles)) / 1e3
-
-    parts = dict(int4_gemm_ms=total_ms('Int4A'), int8_gemm_ms=total_ms('DenseA'),
-                 int8_conv_ms=total_ms('ConvA'), elementwise_ms=total_ms('elementwise_kernel'),
-                 memcpy_ms=total_ms('Memcpy'))
+    by_class = device_ms_by_class(device_us)
+    parts = {f'{name}_ms': by_class[name]
+             for name in ('int4_gemm', 'int8_gemm', 'int8_conv', 'elementwise', 'memcpy')}
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
     return dict(batch=int(images.shape[0]), wall_ms=wall_ms, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1 - busy_ms / wall_ms), **parts,
@@ -985,6 +955,363 @@ def int4_timing(device, card):
     return rows
 
 
+def copy_case(shape, gen, device):
+    """int8 values over the whole range, with both ends of it up front so that
+    every scalar wraps somewhere (127 + 1 -> -128, -128 - 1 -> 127)."""
+    a = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
+    flat = a.view(-1)
+    flat[0], flat[1], flat[2] = 127, -128, -127
+    return a.to(device)
+
+
+def int32_total(psums):
+    return int(psums.sum().to(torch.int32))
+
+
+def copy_err(got, want):
+    """The worst difference of one stream-copy result (output, partial sums)
+    from another: the larger of the outputs' largest difference and the
+    difference of the partial sums' int32 totals."""
+    (got, got_p), (want, want_p) = got, want
+    return max(int((got.int() - want.int()).abs().max()),
+               abs(int32_total(got_p) - int32_total(want_p)))
+
+
+def stream_copy_vs_plain(device):
+    """The stream-copy kernel against its plain version: the output and the
+    int32 total of the partial sums must be equal for every scalar and shape,
+    and a chain of 36 dependent steps at the probe's shape must end in the
+    same tensor and the same carries.  Returns the worst difference measured
+    (``copy_err`` over the cases and the chain)."""
+    gen = torch.Generator().manual_seed(6)
+    mismatches, cases, worst = [], 0, 0
+    for shape in COPY_SHAPES:
+        a = copy_case(shape, gen, device)
+        for sv in (-1, 0, 1):
+            s = torch.full((1,), sv, dtype=torch.int32, device=device)
+            err = copy_err(sc.stream_copy(a, s), sc.stream_copy_plain(a, s))
+            cases, worst = cases + 1, max(worst, err)
+            if err:
+                mismatches.append([list(shape), sv, err])
+    # an unaligned buffer takes the kernel's byte-wise path
+    a = copy_case((100003,), gen, device)[3:]
+    s = torch.ones(1, dtype=torch.int32, device=device)
+    err = copy_err(sc.stream_copy(a, s), sc.stream_copy_plain(a, s))
+    cases, worst = cases + 1, max(worst, err)
+    if err:
+        mismatches.append(['unaligned', 1, err])
+
+    def chain(step, steps=36):
+        c = copy_case(PROBE_SHAPE, torch.Generator().manual_seed(7), device)
+        if int(c.sum()) % 2 == 0:
+            c.view(-1)[3] += 1    # an odd sum: the carries are not all 0
+        s, carries = torch.zeros(1, dtype=torch.int32, device=device), []
+        for _ in range(steps):
+            c, psums = step(c, s)
+            s = sc.stream_copy_carry(psums)
+            carries.append(s)
+        return c, torch.cat(carries).tolist()
+
+    got, got_carries = chain(sc.stream_copy)
+    want, want_carries = chain(sc.stream_copy_plain)
+    chain_err = max(int((got.int() - want.int()).abs().max()),
+                    max(abs(g - w) for g, w in zip(got_carries, want_carries)))
+    worst = max(worst, chain_err)
+    emit('stream_copy_vs_plain', cases=cases, mismatches=mismatches, chain_steps=36,
+         chain_max_abs_err=chain_err, chain_carries=got_carries, max_abs_err=worst)
+    check(not mismatches, f'stream copy != plain: {mismatches}')
+    check(chain_err == 0 and any(got_carries),
+          'a chain of 36 stream-copy steps differs from the plain chain')
+    return float(worst)
+
+
+def call_signature(args, kw):
+    """What tells one call of a kernel wrapper from another for the kernel:
+    every tensor's shape and type, every flag, mode and stride; a float's
+    value does not."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return tuple(v.shape), str(v.dtype)
+        if isinstance(v, (tuple, list)):
+            return tuple(one(i) for i in v)
+        return 'float' if isinstance(v, float) else v
+    return tuple(one(v) for v in args), tuple(sorted((k, one(v)) for k, v in kw.items()))
+
+
+def fake_quant_step(x, delta, offset, qmax, channel_dim=None, **_):
+    """The grid step of each element of ``x`` in an affine fake-quant call."""
+    step = affine_qparams(delta, offset, qmax, device=x.device)[0]
+    if step.ndim and channel_dim is not None:
+        shape = [1] * x.ndim
+        shape[channel_dim] = -1
+        step = step.reshape(shape)
+    return step
+
+
+class HeldToPlain:
+    """Stand-ins for the five kernel wrappers.  While ``active()``, the first
+    call of every distinct signature runs the kernel and then the plain
+    version on the same inputs and holds one against the other: integer and
+    float32 outputs equal; bfloat16 outputs within one ulp, a fake-quant's
+    within one step of the element's own grid; the stream copy by
+    ``copy_err``.  Stochastic fake-quant calls pass through: the plain version
+    draws other noise, and the bench checks their statistics itself.  A
+    kernel launched through a stand-in is counted as any other launch; the
+    plain version launches none."""
+
+    def __init__(self):
+        self.seen = set()
+        self.report = {name: dict(signatures=0, max_abs_err=0.0, bf16_over=0)
+                       for name in ('fake_quant', 'int8_gemm', 'int8_conv', 'int4_gemm',
+                                    'stream_copy')}
+        self.failures = []
+
+    def hold(self, name, sig, got, want, step=None):
+        rep = self.report[name]
+        rep['signatures'] += 1
+        err, over = 0.0, 0
+        if name == 'stream_copy':
+            err = float(copy_err(got, want))
+        elif got.dtype != torch.bfloat16:
+            err = float((got.double() - want.double()).abs().max())
+        elif step is None:
+            over = bf16_over_one_ulp(got, want)
+        else:
+            over = int(((got.float() - want.float()).abs() > step).sum())
+        rep['max_abs_err'] = max(rep['max_abs_err'], err)
+        rep['bf16_over'] += over
+        if err or over:
+            self.failures.append([name, repr(sig)[:300], err, over])
+
+    def stand_in(self, name, real, plain, step_of=None):
+        @functools.wraps(real)
+        def call(*args, **kw):
+            got = real(*args, **kw)
+            sig = (real.__name__,) + call_signature(args, kw)
+            if kw.get('stochastic') or sig in self.seen:
+                return got
+            self.seen.add(sig)
+            want = plain(*args, **kw)
+            self.hold(name, sig, got, want, step_of(*args, **kw) if step_of else None)
+            return got
+        return call
+
+    @contextlib.contextmanager
+    def active(self):
+        wrappers = ((fq, 'fake_quant_fused', 'fake_quant', fq.fake_quant_fused_plain,
+                     fake_quant_step),
+                    (fq, 'fake_quant_kernel_semantics_fused', 'fake_quant',
+                     fq.fake_quant_kernel_semantics_plain,
+                     lambda x, delta, offset, num_bits: as_step(delta, num_bits, x.device)),
+                    (im, 'int8_matmul_dequant', 'int8_gemm', im.int8_matmul_dequant_plain, None),
+                    (ic, 'int8_conv_dequant', 'int8_conv', ic.int8_conv_dequant_plain, None),
+                    (i4, 'int4_matmul', 'int4_gemm', i4.int4_matmul_plain, None),
+                    (sc, 'stream_copy', 'stream_copy', sc.stream_copy_plain, None))
+        with contextlib.ExitStack() as stack:
+            for module, attr, name, plain, step_of in wrappers:
+                stack.enter_context(mock.patch.object(
+                    module, attr, self.stand_in(name, getattr(module, attr), plain, step_of)))
+            yield self
+
+
+def as_step(delta, num_bits, device):
+    """The grid step of a per-tensor fake-quant with the reference semantics."""
+    return torch.as_tensor(delta, dtype=torch.float32, device=device) / (2.0 ** num_bits - 1.0)
+
+
+def bench_calls_vs_plain(device):
+    """Every kernel at every shape the bench path gives it, on the path's own
+    data: the whole bench (ResNet-50 bfloat16 at batch 128, its calibration
+    batches, the sweep at 64 and 256, MobileNet-v2, the probes) runs once with
+    ``HeldToPlain`` active, its printed lines discarded.  This run comes
+    before the counts are set to 0 for ``bench_path`` and its times are not
+    read.  Returns the worst float32 or integer difference by kernel."""
+    held = HeldToPlain()
+    t0 = time.perf_counter()
+    with held.active(), contextlib.redirect_stdout(io.StringIO()):
+        bench.run(batch=BENCH_BATCH, device=device)
+    torch.cuda.synchronize()
+    emit('bench_calls_vs_plain', batch=BENCH_BATCH, seconds=time.perf_counter() - t0,
+         failures=held.failures, **held.report)
+    check(all(r['signatures'] > 0 for r in held.report.values()),
+          f'a kernel of the bench path was held to its plain version at no shape: {held.report}')
+    check(not held.failures, f'kernel != plain on the bench path: {held.failures}')
+    return {name: r['max_abs_err'] for name, r in held.report.items()}
+
+
+def forward_kinds(counts):
+    """A stand-in for ``torch.func.functional_call`` that counts the forwards
+    of a run by what they launch: serving forwards by model and the stages
+    that run packed, quantizing forwards by model."""
+    real = torch.func.functional_call
+
+    def call(model, params, args, *rest, **kw):
+        ctx = args[1]
+        key = None
+        if isinstance(ctx, ServingInt8Context):
+            stages = model._packed_stages(ctx) if hasattr(model, '_packed_stages') else ()
+            key = ('serving', type(model).__name__, tuple(stages))
+        elif isinstance(ctx, QuantizeContext):
+            key = ('quantize', type(model).__name__, ())
+        if key is not None:
+            counts[key] = counts.get(key, 0) + 1
+        return real(model, params, args, *rest, **kw)
+
+    return call
+
+
+def bench_path(device, card):
+    """The throughput bench through its entry point (``bench.run``) at full
+    width: ResNet-50 and MobileNet-v2, 224x224, batch 128, bfloat16.  Every
+    launch count is set to 0 just before and read just after; the forwards'
+    launches are held against the models' site tables (forwards counted by
+    kind as they run), the probes' against what each probe is."""
+    tables, n_weights, n_sites, depthwise = {}, {}, {}, 0
+    for arch in ('resnet50', 'mobilenet_v2'):
+        model, _ = build_model(arch, device='cpu')
+        kind = type(model).__name__
+        n_weights[kind] = sum(1 for m in model.modules() if isinstance(m, (QConv, QLinear)))
+        n_sites[kind] = len(discover_sites(model, (1, 3, 224, 224)))
+        stage_sets = ((), (1, 2, 3, 4)) if arch == 'resnet50' else ((),)
+        for stages in stage_sets:
+            tables[kind, stages] = launch_table(model, stages)
+        if arch == 'mobilenet_v2':
+            depthwise = sum(1 for m in model.modules() if isinstance(m, QConv) and m.groups > 1)
+    forwards, weight_passes = {}, {}
+    quantize_params = QuantEngine.quantize_params
+
+    def counting_quantize_params(self, params):
+        kind = type(self.model).__name__
+        weight_passes[kind] = weight_passes.get(kind, 0) + 1
+        return quantize_params(self, params)
+
+    for wrapper in (fq.fake_quant_fused, im.int8_matmul_dequant, ic.int8_conv_dequant,
+                    i4.int4_matmul, sc.stream_copy):
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(torch.func, 'functional_call', forward_kinds(forwards)), \
+            mock.patch.object(QuantEngine, 'quantize_params', counting_quantize_params):
+        headline, by_section = bench.run(batch=BENCH_BATCH, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bench.kernel_launches()
+
+    predicted = dict.fromkeys(launches, 0)
+    for (mode, kind, stages), n in forwards.items():
+        if mode == 'quantize':
+            predicted['fake_quant'] += n * n_sites[kind]
+        else:
+            int4, gemm, conv = tables[kind, stages]
+            predicted['int4_gemm'] += n * int4
+            predicted['int8_gemm'] += n * gemm
+            predicted['int8_conv'] += n * conv
+    predicted['fake_quant'] += sum(n * n_weights[kind] for kind, n in weight_passes.items())
+    forward_sections = ('bench', 'batch_sweep', 'serving_spread', 'mobilenet_serving')
+    measured = {k: sum(by_section[sec][k] for sec in forward_sections) for k in launches}
+    report = dict(
+        arch='resnet50 + mobilenet_v2', input_size=224, batch=BENCH_BATCH, dtype='bfloat16',
+        per_forward_table={'resnet50_plain': tables['ResNet', ()],
+                           'resnet50_packed': tables['ResNet', (1, 2, 3, 4)],
+                           'mobilenet_v2': tables['MobileNetV2', ()]},
+        forwards={f'{m}:{k}:{"packed" if st else "plain"}': n
+                  for (m, k, st), n in sorted(forwards.items())},
+        weight_passes=weight_passes, launches=launches, launches_by_section=by_section,
+        forward_launches=measured, predicted_forward_launches=predicted,
+        mobilenet_depthwise_convs=depthwise, headline=headline, bench_path_wall_s=wall)
+    emit('bench_path', card=card, **report)
+    check(all(v > 0 for v in launches.values()),
+          f'a kernel of the bench path was never launched: {launches}')
+    check(measured == predicted,
+          f'bench forwards launched {measured}, the site tables predict {predicted}')
+    probes = {sec: {k: v for k, v in by_section[sec].items() if v}
+              for sec in ('stochastic_smoke', 'mxu_rate_probe', 'dma_probe')}
+    check(probes['stochastic_smoke'] == {'fake_quant': 3}
+          and set(probes['mxu_rate_probe']) == {'int8_gemm'}
+          and set(probes['dma_probe']) == {'stream_copy'}
+          and probes['dma_probe']['stream_copy'] % 36 == 0,
+          f'bench probes launched {probes}')
+    check(depthwise == 17 and headline['mobilenet_per_channel_act_sites'] == depthwise
+          and tables['MobileNetV2', ()][2] == depthwise,
+          f"MobileNet-v2 vector-scale sites {headline['mobilenet_per_channel_act_sites']}, "
+          f'depthwise convs {depthwise}')
+    rates = [headline[k] for k in (
+        'value', 'vs_baseline', 'w4a4_sim_images_per_sec', 'bf16_images_per_sec',
+        'w4a4_serving_images_per_sec', 'w4a4_packed_images_per_sec',
+        'mobilenet_serving_images_per_sec', 'int8_dot_tops', 'dma_copy_gbps')]
+    shares = [headline[k] for k in ('mfu_int8', 'bandwidth_util', 'w4a4_packed_mfu_int8',
+                                    'int8_dot_mfu', 'int8_gemm_kernel_mfu',
+                                    'serving_idle_share', 'w4a4_packed_idle_share')]
+    check(np.isfinite(rates).all() and min(rates) > 0, f'bench rates: {headline}')
+    check(np.isfinite(shares).all() and 0 <= min(shares) and max(shares) <= 1,
+          f'bench shares of a peak: {headline}')
+    check(headline['cuda_stochastic_ok'], f'stochastic rounding statistics: {headline}')
+    return launches
+
+
+def bf16_kernels_vs_plain_end_to_end(device, images, arch='resnet50'):
+    """The bfloat16 model's W8A8 serving forward and W4A4 packed forward, on
+    the bench's own batch, with the kernels and with all wrappers patched to
+    their plain versions.  The float32 epilogues are bit-identical and both
+    sides round them to bf16 the same way, so the logits should be equal; the
+    stated tolerance is what one bf16 store off by one ulp could move them:
+    relative error <= 2^-7, argmax equal."""
+    model, meta = build_model(arch, dtype='bfloat16', device=device, seed=0)
+    params = dict(model.state_dict())
+    cal = [(images[:16], np.zeros(16, np.int32))]
+    for phase, grid, packed in (('bf16_serving_kernels_vs_plain_end_to_end', W8A8, False),
+                                ('bf16_packed_kernels_vs_plain_end_to_end', W4A4, True)):
+        eng = QuantEngine(model, QuantPolicy(arch=arch, **grid), meta)
+        sp = eng.prepare_serving_params(eng.quantize_params(params))
+        scales = eng.freeze_serving_scales(sp, cal, packed=packed)
+        kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=packed, tol=2.0 ** -7)
+
+
+def mobilenet_kernels_vs_plain_end_to_end(device, images, arch='mobilenet_v2'):
+    """MobileNet-v2's W8A8 serving forward as the bench serves it (float32
+    activations, 17 per-channel depthwise scale vectors frozen from 16
+    images), with the kernels and with the wrappers patched to their plain
+    versions: exact integer sums and the same float stem, so relative error
+    <= 1e-6 and equal argmax."""
+    model, meta = build_model(arch, device=device, seed=0)
+    eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
+    sp = eng.prepare_serving_params(eng.quantize_params(dict(model.state_dict())))
+    scales = eng.freeze_serving_scales(sp, [(images[:16], np.zeros(16, np.int32))])
+    check(sum(1 for v in scales.values() if np.ndim(v) == 1) == 17,
+          'MobileNet-v2 froze other than 17 vector scales')
+    kernels_vs_plain_end_to_end('mobilenet_kernels_vs_plain_end_to_end', eng, sp, scales, images)
+
+
+def stream_copy_timing(device, card):
+    """The stream-copy kernel at the probe's shape: one step alone, one step
+    of the dependent chain (with the carry's PyTorch launches), the plain
+    version, the byte bound (2 x 102.76 MB) and one library call
+    (``torch.add`` of an int8 scalar into a preallocated int8 output: the copy
+    alone, without the sums; the port never calls it)."""
+    gen = torch.Generator().manual_seed(8)
+    a = copy_case(PROBE_SHAPE, gen, device)
+    s = torch.zeros(1, dtype=torch.int32, device=device)
+    ms = cuda_ms(lambda: sc.stream_copy(a, s))
+    host_paced_ms = cuda_ms(lambda: sc.stream_copy(a, s), head_start=False)
+    plain_ms = cuda_ms(lambda: sc.stream_copy_plain(a, s), iters=5, warmup=1)
+    out, one = torch.empty_like(a), torch.ones((), dtype=torch.int8, device=device)
+    library_ms = cuda_ms(lambda: torch.add(a, one, out=out))
+
+    def chain(steps=36):
+        c, carry = a, s
+        for _ in range(steps):
+            c, psums = sc.stream_copy(c, carry)
+            carry = sc.stream_copy_carry(psums)
+
+    chain_ms_per_step = cuda_ms(chain, iters=3, warmup=1) / 36
+    nbytes = 2 * a.numel()
+    row = dict(shape=list(PROBE_SHAPE), dtype='int8', ms=ms, chain_ms_per_step=chain_ms_per_step,
+               host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes',
+               gb_per_s=nbytes / ms / 1e6, chain_gb_per_s=nbytes / chain_ms_per_step / 1e6)
+    emit('stream_copy_timing', card=card, **row)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1008,6 +1335,7 @@ def main():
     max_err, act, (d_pc, o_pc, q_pc) = kernel_vs_plain(device)
     gemm_err, conv_err = int8_kernels_vs_plain(device)
     int4_err = int4_kernel_vs_plain(device)
+    copy_worst = stream_copy_vs_plain(device)
     im2col_vs_implicit(device)
     emit('card_vs_cpu', **card_vs_cpu(device))
     serving_card_vs_cpu(device)
@@ -1076,6 +1404,15 @@ def main():
     packed_step_profile(eng, sp, scales, images, card)
     del eng, sp, scales
 
+    # ---- main path 4: the throughput bench (bf16, batch 128, MobileNet-v2, the probes)
+    del images
+    bench_err = bench_calls_vs_plain(device)
+    bench_launches = bench_path(device, card)
+    bench_images = bench._images(BENCH_BATCH, 224, device)
+    bf16_kernels_vs_plain_end_to_end(device, bench_images)
+    mobilenet_kernels_vs_plain_end_to_end(device, bench_images)
+    del bench_images
+
     # ---- kernel times at the main paths' shapes
     # fake-quant: the per-channel activation fake-quant at the stage-1 shape.
     # ``ms``: the kernel alone, from the scale/zero point the wrapper derives
@@ -1095,12 +1432,14 @@ def main():
     del act
     timing = int8_timing(device, card)
     timing['int4_gemm'] = int4_timing(device, card)
+    copy = stream_copy_timing(device, card)
 
     def int8_row(name, source, replaces, launches, err):
         # the kernels line carries the heaviest shape; the other is in int8_timing
         t = timing[name][0]
         return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
-                'shape': t['shape'], 'launches': launches, 'max_abs_err': err, 'ms': t['ms'],
+                'shape': t['shape'], 'launches': launches, 'bench_launches': bench_launches[name],
+                'max_abs_err': max(err, bench_err[name]), 'ms': t['ms'],
                 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
                 'bound_by': t['bound_by'], 'library_ms': t['library_ms']}
 
@@ -1108,7 +1447,8 @@ def main():
         {'name': 'fake_quant', 'route': 'cuda',
          'source': 'cnn_quantization_tpu_torch/csrc/fake_quant.cu',
          'replaces': REPLACES, 'modes': ['affine', 'stochastic', 'reference_per_tensor'],
-         'launches': rep['launches'], 'max_abs_err': max_err, 'ms': ms,
+         'launches': rep['launches'], 'bench_launches': bench_launches['fake_quant'],
+         'max_abs_err': max(max_err, bench_err['fake_quant']), 'ms': ms,
          'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
          'library_ms': library_ms},
         int8_row('int8_gemm', 'cnn_quantization_tpu_torch/csrc/int8_gemm.cu', REPLACES_GEMM,
@@ -1117,7 +1457,14 @@ def main():
                  srep['conv_launches'], conv_err),
         dict(int8_row('int4_gemm', 'cnn_quantization_tpu_torch/csrc/int4_gemm.cu', REPLACES_INT4,
                       prep['launches']['int4_gemm'], int4_err),
-             modes=sorted({c[6] for c in INT4_CASES.values()}))]}))
+             modes=sorted({c[6] for c in INT4_CASES.values()})),
+        {'name': 'stream_copy', 'route': 'cuda',
+         'source': 'cnn_quantization_tpu_torch/csrc/stream_copy.cu', 'replaces': REPLACES_COPY,
+         'shape': copy['shape'], 'launches': bench_launches['stream_copy'],
+         'max_abs_err': max(copy_worst, bench_err['stream_copy']), 'ms': copy['ms'],
+         'plain_ms': copy['plain_ms'],
+         'bound_ms': copy['bound_ms'], 'bound_by': copy['bound_by'],
+         'library_ms': copy['library_ms']}]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}))
     return 0

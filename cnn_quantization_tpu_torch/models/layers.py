@@ -5,8 +5,11 @@ intercepting layers, inference_quantization_manager.py:28-283).  Each layer
 carries a static ``Site`` and calls the explicit ``TapContext`` on its output.
 Activations are logical NCHW (channels_last in memory), conv weights OIHW,
 linear weights [out, in].  Float convs stay ``F.conv2d`` and float linears
-``F.linear``, as the JAX package leaves them to XLA outside any Pallas kernel;
-under a ``ServingInt8Context`` convs and linears run true-int8 arithmetic
+``F.linear``, as the JAX package leaves them to XLA outside any Pallas kernel.
+A layer's ``dtype`` is the type its activations travel in (float32, or
+bfloat16 as the throughput bench builds the model): parameters stay float32,
+the float path casts inputs and weights to ``dtype`` and accumulates in
+float32, and the serving kernels write ``dtype``.  Under a ``ServingInt8Context`` convs and linears run true-int8 arithmetic
 through the hand-written kernels (``ops/kernels/int_conv.py``,
 ``ops/kernels/int_matmul.py``), and in W4A4 packed serving the 1x1 convs of a
 Bottleneck trunk run as the int4-packed GEMM (``ops/kernels/int4_matmul.py``).
@@ -103,6 +106,13 @@ def _tap(ctx: TapContext, y, site: Site | None):
     return ctx.tap(y, site) if site is not None else y
 
 
+def _add_bias(y, bias, shape):
+    """The float32 bias added in place to a conv's or linear's low-precision
+    output ``y``: the sum is taken in float32 and rounded to ``y``'s type, and
+    the bias itself is never rounded."""
+    return y if bias is None else y.add_(bias.view(shape))
+
+
 class QConv(nn.Module):
     """Conv2d with bias and a tapped output (Conv2dWithId analogue).
 
@@ -118,9 +128,10 @@ class QConv(nn.Module):
 
     def __init__(self, in_ch: int, features: int, kernel_size, strides=1, padding=0,
                  groups: int = 1, use_bias: bool = True, site: Site | None = None,
-                 out_codes: bool = False):
+                 out_codes: bool = False, dtype=torch.float32):
         super().__init__()
         kh, kw = _pair(kernel_size)
+        self.dtype = dtype
         self.strides, self.padding, self.groups = _pair(strides), _pair(padding), groups
         self.in_ch, self.features = in_ch, features
         self.site, self.out_codes = site, out_codes
@@ -157,7 +168,19 @@ class QConv(nn.Module):
                              '(a ServingInt8Context)')
         if isinstance(x, (QTensor, PackedQTensor)):  # safety: dequantize on the float path
             x = x.dequant()
-        y = F.conv2d(x, weight, self.bias, self.strides, self.padding, groups=self.groups)
+        # two float paths on purpose.  float32 hands the bias to the library's
+        # conv, which adds it in its epilogue: one pass over the output, and
+        # the arithmetic the float32 paths' card-against-CPU bounds were
+        # measured on.  A bfloat16 conv given a bias would round the bias to
+        # bfloat16 first; the JAX package adds the float32 bias to the
+        # conv's rounded output, and so does ``_add_bias``.
+        if self.dtype == torch.float32:
+            y = F.conv2d(x.float(), weight, self.bias, self.strides, self.padding,
+                         groups=self.groups)
+        else:
+            y = _add_bias(F.conv2d(x.to(self.dtype), weight.to(self.dtype), None, self.strides,
+                                   self.padding, groups=self.groups),
+                          self.bias, (1, -1, 1, 1))
         return _tap(ctx, y, self.site)
 
     def _serve(self, x, ctx, stem_s2d: bool, residual=None, out_spec=None,
@@ -232,14 +255,15 @@ class QConv(nn.Module):
             codes = int_matmul.quantize_sym_codes(x, act_scale)
             y = int_conv.int8_conv(s2d_stem_input(codes), w_codes, w_scale, self.bias,
                                    strides=(1, 1), padding=(0, 0), act_bits=8,
-                                   act_scale=act_scale, fuse_relu=fuse_relu)
+                                   act_scale=act_scale, fuse_relu=fuse_relu,
+                                   out_dtype=self.dtype)
         else:
             # with an out_spec the ReLU ahead of the requant runs in the conv
             # kernel's epilogue (max(., 0) gives the same values either way)
             y = int_conv.int8_conv(x if prequant else x.float(), w_codes, w_scale, self.bias,
                                    strides=self.strides, padding=self.padding,
                                    groups=self.groups, act_bits=act_bits, act_scale=act_scale,
-                                   fuse_relu=fuse_relu)
+                                   fuse_relu=fuse_relu, out_dtype=self.dtype)
         if out_spec is not None:
             # packed-serving orchestration (Bottleneck conv2): requantize the
             # int8 conv's output to codes at the NEXT consumer's frozen scale;
@@ -295,7 +319,8 @@ class QConv(nn.Module):
             a.permute(0, 2, 3, 1).reshape(n * h * w, cc),
             self.weight.reshape(self.features, self.in_ch).t(), alpha, self.bias,
             residual=res2, res_scale=res_scale, out_scale=out_scale, a_packed=a_packed,
-            fuse_relu=fuse_relu, out_mode=mode, out_qmax=2.0 ** (act_bits - 1) - 1.0)
+            fuse_relu=fuse_relu, out_mode=mode, out_qmax=2.0 ** (act_bits - 1) - 1.0,
+            out_dtype=self.dtype)
         y = y2.view(n, h, w, -1).permute(0, 3, 1, 2)
         if mode == 'packed':
             return PackedQTensor(y, out_scale)
@@ -308,9 +333,9 @@ class QLinear(nn.Module):
     """Linear with a tapped output (LinearWithId analogue)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 site: Site | None = None):
+                 site: Site | None = None, dtype=torch.float32):
         super().__init__()
-        self.site = site
+        self.site, self.dtype = site, dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -322,7 +347,12 @@ class QLinear(nn.Module):
 
     def forward(self, x, ctx: TapContext):
         if not getattr(ctx, 'int8_serving', False):
-            return _tap(ctx, F.linear(x, self.weight, self.bias), self.site)
+            if self.dtype == torch.float32:   # two paths as in ``QConv.forward``, and why
+                y = F.linear(x.float(), self.weight, self.bias)
+            else:
+                y = _add_bias(F.linear(x.to(self.dtype), self.weight.to(self.dtype)),
+                              self.bias, (1, -1))
+            return _tap(ctx, y, self.site)
         # true-int path; the classifier/linear stays 8-bit whatever the conv
         # bit widths are (reference weight_classifier/activation_classifier
         # policy, i_q_m.py:414, 437)
@@ -341,7 +371,8 @@ class QLinear(nn.Module):
                     ctx.record_input_stats(site_id, xf)
         x_q = int_matmul.quantize_sym_codes(xf, act_scale)
         y = int_matmul.int8_matmul_dequant(x_q.reshape(-1, x_q.shape[-1]), w_codes.t(),
-                                           act_scale * w_scale, self.bias)
+                                           act_scale * w_scale, self.bias,
+                                           out_dtype=self.dtype)
         return _tap(ctx, y.reshape(*x_q.shape[:-1], -1), self.site)
 
 
@@ -349,9 +380,10 @@ class QBatchNorm(nn.Module):
     """Inference-mode BatchNorm2d with a tapped output; only built for
     architectures whose BN is not folded into the preceding conv."""
 
-    def __init__(self, features: int, eps: float = 1e-5, site: Site | None = None):
+    def __init__(self, features: int, eps: float = 1e-5, site: Site | None = None,
+                 dtype=torch.float32):
         super().__init__()
-        self.eps, self.site = eps, site
+        self.eps, self.site, self.dtype = eps, site, dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
@@ -362,7 +394,7 @@ class QBatchNorm(nn.Module):
         inv = self.weight * torch.rsqrt(self.running_var + self.eps)
         y = (x.float() - self.running_mean.view(shape)) * inv.view(shape) \
             + self.bias.view(shape)
-        return _tap(ctx, y.to(x.dtype), self.site)
+        return _tap(ctx, y.to(self.dtype), self.site)
 
 
 class QMaxPool(nn.Module):

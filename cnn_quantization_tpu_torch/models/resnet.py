@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch import nn
 
 from ..engine.context import Site, TapContext
@@ -21,11 +22,11 @@ from .layers import (PackedQTensor, QAvgPool, QBatchNorm, QConv, QLinear, QMaxPo
                      SiteNamer, relu)
 
 
-def _dequant_identity(identity):
+def _dequant_identity(identity, dtype):
     """The residual identity may arrive as int8 codes (downsample out-codes
     or the block's shared input codes); dequantize it for the add."""
     if isinstance(identity, QTensor):
-        return identity.dequant()
+        return identity.dequant(dtype)
     return identity
 
 
@@ -56,6 +57,7 @@ class BlockSpec:
     has_downsample: bool
     ds_sites: tuple  # (conv_site, bn_site) or ()
     conv_sites: tuple  # ((conv_site, bn_site), ...) per conv in the block
+    dtype: torch.dtype = torch.float32   # the type activations travel in
     groups: int = 1       # ResNeXt cardinality (torchvision Bottleneck)
     base_width: int = 64  # WideResNet width_per_group
 
@@ -67,7 +69,7 @@ class BlockSpec:
 def _downsample(s: BlockSpec):
     dc, db = s.ds_sites
     mods = [QConv(s.in_planes, s.out_planes, 1, s.stride, 0, use_bias=s.fold_bn, site=dc,
-                  out_codes=s.fold_bn)]
+                  out_codes=s.fold_bn, dtype=s.dtype)]
     if not s.fold_bn:
         mods.append(QBatchNorm(s.out_planes, site=db))
     return nn.ModuleList(mods)
@@ -86,10 +88,12 @@ class BasicBlock(nn.Module):
         (c1, b1), (c2, b2) = s.conv_sites
         # torchvision's module order (each BN right after its conv), which
         # BN folding of a checkpoint relies on
-        self.conv1 = QConv(s.in_planes, s.planes, 3, s.stride, 1, use_bias=s.fold_bn, site=c1)
+        self.conv1 = QConv(s.in_planes, s.planes, 3, s.stride, 1, use_bias=s.fold_bn, site=c1,
+                           dtype=s.dtype)
         if not s.fold_bn:
             self.bn1 = QBatchNorm(s.planes, site=b1)
-        self.conv2 = QConv(s.planes, s.planes, 3, 1, 1, use_bias=s.fold_bn, site=c2)
+        self.conv2 = QConv(s.planes, s.planes, 3, 1, 1, use_bias=s.fold_bn, site=c2,
+                           dtype=s.dtype)
         if not s.fold_bn:
             self.bn2 = QBatchNorm(s.planes, site=b2)
         if s.has_downsample:
@@ -106,7 +110,7 @@ class BasicBlock(nn.Module):
             out = self.bn2(out, ctx)
         if self.spec.has_downsample:
             identity = _run(self.downsample, x, ctx)
-        return relu(out + _dequant_identity(identity))
+        return relu(out + _dequant_identity(identity, self.spec.dtype))
 
 
 class Bottleneck(nn.Module):
@@ -116,13 +120,14 @@ class Bottleneck(nn.Module):
         width = int(s.planes * (s.base_width / 64.0)) * s.groups
         (c1, b1), (c2, b2), (c3, b3) = s.conv_sites
         fold = s.fold_bn
-        self.conv1 = QConv(s.in_planes, width, 1, 1, 0, use_bias=fold, site=c1)
+        self.conv1 = QConv(s.in_planes, width, 1, 1, 0, use_bias=fold, site=c1, dtype=s.dtype)
         if not fold:
             self.bn1 = QBatchNorm(width, site=b1)
-        self.conv2 = QConv(width, width, 3, s.stride, 1, groups=s.groups, use_bias=fold, site=c2)
+        self.conv2 = QConv(width, width, 3, s.stride, 1, groups=s.groups, use_bias=fold, site=c2,
+                           dtype=s.dtype)
         if not fold:
             self.bn2 = QBatchNorm(width, site=b2)
-        self.conv3 = QConv(width, s.out_planes, 1, 1, 0, use_bias=fold, site=c3)
+        self.conv3 = QConv(width, s.out_planes, 1, 1, 0, use_bias=fold, site=c3, dtype=s.dtype)
         if not fold:
             self.bn3 = QBatchNorm(s.out_planes, site=b3)
         if s.has_downsample:
@@ -161,16 +166,17 @@ class Bottleneck(nn.Module):
             out = self.bn3(out, ctx)
         if self.spec.has_downsample:
             identity = _run(self.downsample, x, ctx)
-        return relu(out + _dequant_identity(identity))
+        return relu(out + _dequant_identity(identity, self.spec.dtype))
 
 
 class ResNet(nn.Module):
     def __init__(self, stem_sites: tuple, stage_specs: tuple, avgpool_site: Site,
-                 fc_site: Site, fold_bn: bool = True, num_classes: int = 1000):
+                 fc_site: Site, fold_bn: bool = True, num_classes: int = 1000,
+                 dtype=torch.float32):
         super().__init__()
         conv_site, bn_site, mp_site = stem_sites
-        self.fold_bn = fold_bn
-        self.conv1 = QConv(3, 64, 7, 2, 3, use_bias=fold_bn, site=conv_site)
+        self.fold_bn, self.dtype = fold_bn, dtype
+        self.conv1 = QConv(3, 64, 7, 2, 3, use_bias=fold_bn, site=conv_site, dtype=dtype)
         if not fold_bn:
             self.bn1 = QBatchNorm(64, site=bn_site)
         self.maxpool = QMaxPool(3, 2, 1, site=mp_site)
@@ -181,11 +187,12 @@ class ResNet(nn.Module):
             block = Bottleneck if stage[0].bottleneck else BasicBlock
             setattr(self, f'layer{li + 1}', nn.ModuleList(block(sp) for sp in stage))
         self.avgpool = QAvgPool(None, 1, site=avgpool_site)
-        self.fc = QLinear(stage_specs[-1][-1].out_planes, num_classes, site=fc_site)
+        self.fc = QLinear(stage_specs[-1][-1].out_planes, num_classes, site=fc_site,
+                          dtype=dtype)
 
     def forward(self, x, ctx: TapContext):
         """``x``: NCHW float32 (channels_last in memory) -> float32 logits."""
-        x = self.conv1(x, ctx)
+        x = self.conv1(x.to(self.dtype), ctx)
         if not self.fold_bn:
             x = self.bn1(x, ctx)
         x = relu(x)
@@ -253,7 +260,6 @@ class ResNet(nn.Module):
         return stages if all(n in scales for n in need) else ()
 
 
-
 _LAYER_CFG = {
     # arch: (block kind, stage depths, groups, width_per_group)
     'resnet18': ('basic', (2, 2, 2, 2), 1, 64),
@@ -269,7 +275,7 @@ _LAYER_CFG = {
 
 
 def build_resnet(arch: str, fold_bn: bool = True, num_classes: int = 1000,
-                 mark_relu: bool | None = None) -> ResNet:
+                 dtype=torch.float32, mark_relu: bool | None = None) -> ResNet:
     """A ResNet with reference-compatible site numbering (torchvision +
     reference construction order): stem conv/bn first; per stage the
     downsample conv/bn before block 0's convs; before-ReLU half-range marks
@@ -308,11 +314,11 @@ def build_resnet(arch: str, fold_bn: bool = True, num_classes: int = 1000,
             blocks.append(BlockSpec(
                 planes=planes, stride=blk_stride, in_planes=in_planes,
                 bottleneck=bottleneck, fold_bn=fold_bn, has_downsample=has_ds,
-                ds_sites=ds_sites, conv_sites=conv_sites,
+                ds_sites=ds_sites, conv_sites=conv_sites, dtype=dtype,
                 groups=groups, base_width=base_width))
             in_planes = planes * expansion
         stages.append(tuple(blocks))
 
     return ResNet(stem_sites=stem, stage_specs=tuple(stages),
                   avgpool_site=namer.avgpool(), fc_site=namer.linear(classifier=True),
-                  fold_bn=fold_bn, num_classes=num_classes)
+                  fold_bn=fold_bn, num_classes=num_classes, dtype=dtype)

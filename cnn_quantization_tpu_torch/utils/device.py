@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -14,6 +16,16 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            'to run on the CPU')
     return dev
+
+
+def card_name_and_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` prints them (its first line): every time and rate
+    measured on the card is reported beside it."""
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def use_full_fp32():

@@ -29,6 +29,18 @@ POLICIES = {
 }
 
 
+def site_table(sites, nhwc):
+    """[(id, tag, half_range, kind, NCHW shape)] of a ``discover_sites`` result;
+    ``nhwc`` says the shapes are the JAX package's."""
+    rows = []
+    for s, shape in sites:
+        shape = tuple(shape)
+        if nhwc and len(shape) == 4:
+            shape = (shape[0], shape[3], shape[1], shape[2])
+        rows.append((s.id, s.tag, s.half_range, s.kind, shape))
+    return rows
+
+
 def torchvision_like_state(arch, seed=12345):
     """An unfolded torchvision-style checkpoint, as the reference parity tests
     build it: kaiming fan-out convs, randomized BN (their ``randomize_bn``),
@@ -54,13 +66,18 @@ def torchvision_like_state(arch, seed=12345):
 
 
 class Pair:
-    """The same arch, BN-folded weights and input in both packages."""
+    """The same arch, weights and input in both packages.  BN is folded as the
+    registry folds the arch (``fold_bn=None``; every 'resnet' arch, so not
+    resnext or mobilenet_v2) or as ``fold_bn`` says; ``dtype`` is the type the
+    activations travel in."""
 
-    def __init__(self, arch, size, batch=2):
+    def __init__(self, arch, size, batch=2, fold_bn=None, dtype='float32'):
         self.arch, self.size = arch, size
-        self.j_model, self.j_meta = j_build_model(arch)
-        self.j_params = import_arch(arch, torchvision_like_state(arch), fold_bn=True)
-        self.model, self.meta = build_model(arch, device='cpu')
+        kw = {} if dtype == 'float32' else {'dtype': dtype}   # mobilenet_v2 takes none
+        self.j_model, self.j_meta = j_build_model(arch, fold_bn=fold_bn, **kw)
+        fold_bn = self.j_meta.fold_bn
+        self.j_params = import_arch(arch, torchvision_like_state(arch), fold_bn=fold_bn)
+        self.model, self.meta = build_model(arch, fold_bn=fold_bn, device='cpu', **kw)
         self.model.load_state_dict(state_dict_from_flax(self.j_params), strict=True)
         self.params = dict(self.model.state_dict())
         self.sites = [s for s, _ in discover_sites(self.model, (1, 3, size, size))]
