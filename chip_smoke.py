@@ -29,6 +29,11 @@ run at batch 64:
     each distinct signature held against the plain version on the same
     inputs, then counted, every launch against the models' site tables.
 
+The int8 GEMM and the int8 conv have two routes each, chosen by shape (TMA +
+wgmma or mma.sync; direct depthwise or implicit GEMM): ``int8_kernels_vs_plain``
+holds every route against the plain version, and each path's phase holds the
+launches by route against the route functions applied to the model's modules.
+
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
 and ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
 those lines.  Without a CUDA device, or without the rest of the repository,
@@ -45,6 +50,7 @@ import os
 import sys
 import tempfile
 import time
+from collections import Counter
 from unittest import mock
 
 import numpy as np
@@ -85,11 +91,13 @@ STAGE1_ACT = (64, 256, 56, 56)   # ResNet-50 layer1 output at 224x224, batch 64
 REPLACES = 'cnn_quantization_tpu/ops/kernels/fake_quant.py:63'
 REPLACES_GEMM = 'cnn_quantization_tpu/ops/kernels/int_matmul.py:58'
 REPLACES_CONV = 'cnn_quantization_tpu/ops/kernels/int_conv.py:63'
-# the serving path's own shapes at 224x224, batch 64 (M = batch * H * W), and
-# three of MobileNet-v2's at batch 128: K = 24 (no multiple of 16: the loader's
-# byte-wise path), N = 16 and N = 24 (ragged column tiles)
+# (M, K, N): the serving path's own shapes at 224x224, batch 64 (M = batch * H
+# * W), the classifier at batch 128, three of MobileNet-v2's at batch 128: K =
+# 24 (no multiple of 16: the mma.sync route and its byte-wise loader), N = 16
+# and N = 24 (ragged column tiles), and a TMA route case ragged in M, N and K
 GEMM_SHAPES = ((200704, 64, 256), (200704, 256, 64), (3136, 512, 2048), (3136, 2048, 512),
-               (64, 2048, 1000), (401408, 24, 144), (1605632, 32, 16), (401408, 144, 24))
+               (64, 2048, 1000), (128, 2048, 1000), (401408, 24, 144), (1605632, 32, 16),
+               (401408, 144, 24), (3001, 272, 1000))
 # (input NCHW, out channels, kernel, stride, padding, groups, per-group scale vector)
 CONV_SHAPES = {
     '3x3_s1_c64': ((64, 64, 56, 56), 64, 3, 1, 1, 1, False),
@@ -102,9 +110,12 @@ CONV_SHAPES = {
     # MobileNet-v2 at batch 128: its widest depthwise conv and a strided one
     'dw_s1_c144_b128': ((128, 144, 56, 56), 144, 3, 1, 1, 144, True),
     'dw_s2_c96_b128': ((128, 96, 112, 112), 96, 3, 2, 1, 96, True),
+    # the direct depthwise route's masked path: C no multiple of 16, odd H and W
+    'dw_s2_c40_odd': ((32, 40, 29, 27), 40, 3, 2, 1, 40, True),
 }
-TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048))
-TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', 'dw_s1_c144_b128')
+# the two serving shapes and the bench's int8-rate probe
+TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048), (4096, 16384, 4096))
+TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', 'dw_s1_c144_b128', 'dw_s2_c96_b128')
 REPLACES_INT4 = 'cnn_quantization_tpu/ops/kernels/int4_matmul.py:229'
 # the packed path's int4 GEMM calls at 224x224, batch 64: name -> (M, K, N, A
 # packed, residual, ReLU, out_mode); M = batch * H * W.  'rows' slices the rows
@@ -353,13 +364,29 @@ def bf16_over_one_ulp(got, want):
     return int(((got - want).abs() > want.abs() * 2.0 ** -7 + 1e-30).sum())
 
 
+def route_launches():
+    """Launches by route: the int8 GEMM's TMA + wgmma and mma.sync kernels,
+    the int8 conv's direct depthwise and implicit-GEMM kernels."""
+    return Counter(wgmma=im.int8_matmul_dequant.launches_wgmma,
+                   mma_sync=im.int8_matmul_dequant.launches_mma_sync,
+                   depthwise=ic.int8_conv_dequant.launches_depthwise,
+                   implicit_gemm=ic.int8_conv_dequant.launches_implicit_gemm)
+
+
+def reset_route_launches():
+    im.int8_matmul_dequant.launches_wgmma = im.int8_matmul_dequant.launches_mma_sync = 0
+    ic.int8_conv_dequant.launches_depthwise = ic.int8_conv_dequant.launches_implicit_gemm = 0
+
+
 def int8_kernels_vs_plain(device):
-    """Both int8 kernels against their plain versions at the serving path's
-    shapes, on both code grids.  The int32 sums are exact and the epilogue
-    rounds each operation as the plain version does, so float32 outputs must
-    be bit-identical; bf16 within one bf16 ulp."""
+    """Both int8 kernels, each by both of its routes, against their plain
+    versions at the serving path's shapes, on both code grids.  The int32 sums
+    are exact and the epilogue rounds each operation as the plain version
+    does, so float32 outputs must be bit-identical; bf16 within one bf16 ulp."""
     gen = torch.Generator().manual_seed(1)
     gemm_err, conv_err, bf16_over = {}, {}, 0
+    routes = {}
+    before = route_launches()
     for m, k, n in GEMM_SHAPES:
         for qmax in (127, 7):
             a, b, alpha, beta = gemm_case(m, k, n, qmax, gen, device)
@@ -370,11 +397,14 @@ def int8_kernels_vs_plain(device):
                                                         out_dtype=dt)
                     if dt == torch.float32:
                         key = f'{m}x{k}x{n}'
+                        routes[key] = im.gemm_route(k)
                         err = float((got - want).abs().max())
                         gemm_err[key] = max(gemm_err.get(key, 0.0), err)
                     else:
                         bf16_over += bf16_over_one_ulp(got, want)
     for name in CONV_SHAPES:
+        shape, o, _, _, _, groups, _ = CONV_SHAPES[name]
+        routes[name] = ic.conv_route(shape[1], o, groups)
         for qmax in (127, 7):
             args, kw = conv_case(name, qmax, gen, device)
             for dt in (torch.float32, torch.bfloat16):
@@ -387,8 +417,12 @@ def int8_kernels_vs_plain(device):
                 else:
                     bf16_over += bf16_over_one_ulp(got, want)
     torch.cuda.synchronize()
+    launched = route_launches() - before
     emit('int8_kernels_vs_plain', gemm_max_abs_err_fp32=gemm_err,
-         conv_max_abs_err_fp32=conv_err, bf16_elements_over_one_ulp=bf16_over)
+         conv_max_abs_err_fp32=conv_err, bf16_elements_over_one_ulp=bf16_over, routes=routes,
+         route_launches=launched)
+    check(all(launched[r] > 0 for r in ('wgmma', 'mma_sync', 'depthwise', 'implicit_gemm')),
+          f'a route of the int8 kernels was not held to its plain version: {launched}')
     check(all(v == 0.0 for v in gemm_err.values()), f'int8 GEMM != plain (fp32): {gemm_err}')
     check(all(v == 0.0 for v in conv_err.values()), f'int8 conv != plain (fp32): {conv_err}')
     check(bf16_over == 0, f'{bf16_over} bf16 outputs off by more than one ulp')
@@ -438,29 +472,45 @@ def serving_card_vs_cpu(device, arch='resnet18', size=64):
           and out['logits_rel_to_float'] < 0.03, f'serving logits: {out}')
 
 
-def launch_table(model, stages=(), s2d_stem=False):
-    """(int4 GEMM, int8 GEMM, int8 conv) launches of one serving forward, from
-    the model's modules and the routing rule: a 1x1 stride-1 unpadded
-    ungrouped conv and every linear is an int8 GEMM, every other conv goes to
-    the conv kernel, and the in_ch == 3 stem stays a float conv unless it was
-    space-to-depth transformed.  In the 1-based ``stages`` that run packed,
-    conv1, conv3 and the downsample conv of every block are int4 GEMMs."""
-    int4 = gemm = conv = 0
+def serving_launches(model, stages=(), s2d_stem=False):
+    """(kernel, route) of every integer launch of one serving forward, from
+    the model's modules and the routing rules: a 1x1 stride-1 unpadded
+    ungrouped conv and every linear is an int8 GEMM (routed by
+    ``int_matmul.gemm_route`` from its K), every other conv goes to the conv
+    kernel (routed by ``int_conv.conv_route``), and the in_ch == 3 stem stays a
+    float conv unless it was space-to-depth transformed (12 channels).  In the
+    1-based ``stages`` that run packed, conv1, conv3 and the downsample conv of
+    every block are int4 GEMMs (route None)."""
     for name, m in model.named_modules():
         if isinstance(m, QLinear):
-            gemm += 1
+            yield 'int8_gemm', im.gemm_route(m.weight.shape[1])
         elif isinstance(m, QConv):
             stage = int(name[5]) if name.startswith('layer') else 0
             if m.in_ch == 3:
-                conv += int(s2d_stem)
+                if s2d_stem:
+                    yield 'int8_conv', ic.conv_route(12, m.features, 1)
             elif stage in stages and name.endswith(('.conv1', '.conv3', '.downsample.0')):
-                int4 += 1
+                yield 'int4_gemm', None
             elif (tuple(m.weight.shape[2:]), m.strides, m.padding, m.groups) \
                     == ((1, 1), (1, 1), (0, 0), 1):
-                gemm += 1
+                yield 'int8_gemm', im.gemm_route(m.in_ch)
             else:
-                conv += 1
-    return int4, gemm, conv
+                yield 'int8_conv', ic.conv_route(m.in_ch, m.features, m.groups)
+
+
+def launch_table(model, stages=(), s2d_stem=False):
+    """(int4 GEMM, int8 GEMM, int8 conv) launches of one serving forward."""
+    kinds = Counter(kind for kind, _ in serving_launches(model, stages, s2d_stem))
+    return kinds['int4_gemm'], kinds['int8_gemm'], kinds['int8_conv']
+
+
+def route_table(model, stages=(), s2d_stem=False):
+    """Launches by route of one serving forward (``route_launches``' keys)."""
+    return Counter(route for _, route in serving_launches(model, stages, s2d_stem) if route)
+
+
+def times(table, n):
+    return Counter({k: v * n for k, v in table.items()})
 
 
 def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batches=4):
@@ -476,6 +526,7 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     images = batches[0][0]
     _, gemm_per, conv_per = launch_table(model)
     _, _, conv_s2d = launch_table(model, s2d_stem=True)
+    routes_per, routes_s2d = route_table(model), route_table(model, s2d_stem=True)
 
     def serve(eng, sp, scales):
         logits, aux = eng.make_forward(quantized='serving_int8', act_scales=scales)(
@@ -484,6 +535,7 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
 
     im.int8_matmul_dequant.launches = 0
     ic.int8_conv_dequant.launches = 0
+    reset_route_launches()
     t0 = time.perf_counter()
     eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
     pq = eng.quantize_params(params)
@@ -504,18 +556,22 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     wall = time.perf_counter() - t0
     gemm_launches = im.int8_matmul_dequant.launches
     conv_launches = ic.int8_conv_dequant.launches
+    routes = route_launches()
 
     # 2 calibration forwards per freeze; the s2d stem adds one conv launch
     forwards = (2 + eval_batches) + (2 + 1) + (2 + 1) + 1
     forwards_s2d = 2 + 1
     predicted_gemm = gemm_per * (forwards + forwards_s2d)
     predicted_conv = conv_per * forwards + conv_s2d * forwards_s2d
+    predicted_routes = times(routes_per, forwards) + times(routes_s2d, forwards_s2d)
     s2d_codes = sp_s2d['conv1.weight']
     report = dict(arch=arch, input_size=size, batch=batch, grid='W8A8',
                   gemm_per_forward=gemm_per, conv_per_forward=conv_per,
                   conv_per_forward_s2d_stem=conv_s2d, forwards=forwards + forwards_s2d,
                   gemm_launches=gemm_launches, predicted_gemm_launches=predicted_gemm,
                   conv_launches=conv_launches, predicted_conv_launches=predicted_conv,
+                  routes_per_forward=routes_per, route_launches=routes,
+                  predicted_route_launches=predicted_routes,
                   frozen_sites=len(scales), frozen_sites_s2d_stem=len(scales_s2d),
                   dynamic_recorded_sites=len(recorded),
                   s2d_stem_kernel=[str(s2d_codes.dtype), list(s2d_codes.shape)],
@@ -602,12 +658,15 @@ def int8_bound_ms(ops, nbytes):
 
 
 def int8_timing(device, card):
-    """Each int8 kernel at its heaviest shapes on the serving path: kernel,
-    plain version, bound, and for the GEMM one library call (torch._int_mm:
-    the int32 product only, no epilogue; the port never calls it).  PyTorch
-    has no call that computes an int8 convolution.  No cache flush between
-    launches: the largest shapes exceed the 50 MB L2, the late-stage ones fit
-    and are found warm, as their producer leaves them on the path."""
+    """Each int8 kernel at its heaviest shapes on the serving path (and the
+    GEMM at the bench's int8-rate probe): kernel, plain version, bound, the
+    route taken, and one library call where one computes the same product
+    (the port never calls either): for the GEMM torch._int_mm (the int32
+    product only, no epilogue); for a conv whose sums stay below 2^24 (exact
+    in float32: the depthwise and the C = 64 shapes) F.conv2d on float32 codes
+    with TF32 off (the product alone, at 4-byte input).  No cache flush
+    between launches: the largest shapes exceed the 50 MB L2, the late-stage
+    ones fit and are found warm, as their producer leaves them on the path."""
     gen = torch.Generator().manual_seed(2)
     rows = {'int8_gemm': [], 'int8_conv': []}
     for m, k, n in TIMED_GEMMS:
@@ -622,9 +681,10 @@ def int8_timing(device, card):
         bound_ms, bound_by = int8_bound_ms(ops, nbytes)
         rows['int8_gemm'].append(dict(
             shape=f'[{m},{k}]x[{k},{n}]', out='float32', ms=ms, host_paced_ms=host_paced_ms,
-            plain_ms=plain_ms,
+            plain_ms=plain_ms, route=im.gemm_route(k),
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-            tera_ops_per_s=ops / ms / 1e9, gb_per_s=nbytes / ms / 1e6))
+            tera_ops_per_s=ops / ms / 1e9, library_tera_ops_per_s=ops / library_ms / 1e9,
+            gb_per_s=nbytes / ms / 1e6))
     for name in TIMED_CONVS:
         (x, w, w_scale, bias), kw = conv_case(name, 127, gen, device)
         alpha = kw.pop('act_scale') * w_scale
@@ -634,12 +694,24 @@ def int8_timing(device, card):
         plain_ms = cuda_ms(lambda: ic.int8_conv_dequant_plain(x, w, alpha, bias, **kw), iters=5,
                            warmup=1)
         out = ic.int8_conv_dequant(x, w, alpha, bias, **kw)
+        library_ms = None
+        if w[0].numel() * 127 * 127 < 2 ** 24:
+            xf, wf = x.float(), w.float()
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                library_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+                    xf, wf, None, kw['strides'], kw['padding'], groups=kw['groups']))
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            del xf, wf
         ops = 2 * out.numel() * w[0].numel()
         nbytes = x.numel() + w.numel() + 4 * out.numel() + 8 * w.shape[0]
         bound_ms, bound_by = int8_bound_ms(ops, nbytes)
         rows['int8_conv'].append(dict(
             shape=f'{list(x.shape)} * {list(w.shape)} stride {kw["strides"][0]}', out='float32',
-            ms=ms, host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=None,
+            ms=ms, host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=library_ms,
+            route=ic.conv_route(x.shape[1], w.shape[0], kw['groups']),
             bound_ms=bound_ms, bound_by=bound_by,
             tera_ops_per_s=ops / ms / 1e9, gb_per_s=nbytes / ms / 1e6))
     emit('int8_timing', card=card, **rows)
@@ -733,6 +805,7 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
     images = batches[0][0]
     all_stages = (1, 2, 3, 4)
     table = {st: launch_table(model, st) for st in ((), (1,), (2, 3), all_stages)}
+    routes = {st: route_table(model, st) for st in table}
 
     def forward(scales, packed):
         logits, _ = eng.make_forward(quantized='serving_int8', act_scales=scales,
@@ -742,6 +815,7 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
     i4.int4_matmul.launches = 0
     im.int8_matmul_dequant.launches = 0
     ic.int8_conv_dequant.launches = 0
+    reset_route_launches()
     t0 = time.perf_counter()
     eng = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
     sp = eng.prepare_serving_params(eng.quantize_params(params))
@@ -764,10 +838,12 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     launches = kernel_launches()
+    route_counts = route_launches()
 
     # 2 dynamic calibration forwards and the 2 fallback forwards run plain
     forwards = {(): 2 + 2, all_stages: eval_batches, (1,): 1, (2, 3): 1}
     predicted = [sum(table[st][i] * n for st, n in forwards.items()) for i in range(3)]
+    predicted_routes = sum((times(routes[st], n) for st, n in forwards.items()), Counter())
     report = dict(arch=arch, input_size=size, batch=batch, grid='W4A4',
                   per_forward_table={'packed': table[all_stages], 'stage_1': table[(1,)],
                                      'stages_2_3': table[(2, 3)], 'plain': table[()]},
@@ -777,6 +853,7 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
                   forwards=sum(forwards.values()),
                   launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), launches)),
                   predicted_launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), predicted)),
+                  route_launches=route_counts, predicted_route_launches=predicted_routes,
                   frozen_sites=len(scales),
                   packed_out_keys=sum(k.endswith(':out:packed') for k in scales),
                   fallback_equals_plain=fallback_equals_plain,
@@ -1166,7 +1243,7 @@ def bench_path(device, card):
     launch count is set to 0 just before and read just after; the forwards'
     launches are held against the models' site tables (forwards counted by
     kind as they run), the probes' against what each probe is."""
-    tables, n_weights, n_sites, depthwise = {}, {}, {}, 0
+    tables, routes, n_weights, n_sites, depthwise = {}, {}, {}, {}, 0
     for arch in ('resnet50', 'mobilenet_v2'):
         model, _ = build_model(arch, device='cpu')
         kind = type(model).__name__
@@ -1175,6 +1252,7 @@ def bench_path(device, card):
         stage_sets = ((), (1, 2, 3, 4)) if arch == 'resnet50' else ((),)
         for stages in stage_sets:
             tables[kind, stages] = launch_table(model, stages)
+            routes[kind, stages] = route_table(model, stages)
         if arch == 'mobilenet_v2':
             depthwise = sum(1 for m in model.modules() if isinstance(m, QConv) and m.groups > 1)
     forwards, weight_passes = {}, {}
@@ -1188,6 +1266,7 @@ def bench_path(device, card):
     for wrapper in (fq.fake_quant_fused, im.int8_matmul_dequant, ic.int8_conv_dequant,
                     i4.int4_matmul, sc.stream_copy):
         wrapper.launches = 0
+    reset_route_launches()
     t0 = time.perf_counter()
     with mock.patch.object(torch.func, 'functional_call', forward_kinds(forwards)), \
             mock.patch.object(QuantEngine, 'quantize_params', counting_quantize_params):
@@ -1195,8 +1274,11 @@ def bench_path(device, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = bench.kernel_launches()
+    route_counts = route_launches()
 
     predicted = dict.fromkeys(launches, 0)
+    # the int8-rate probe's product has K = 16384: the TMA + wgmma route
+    predicted_routes = Counter(wgmma=by_section['mxu_rate_probe']['int8_gemm'])
     for (mode, kind, stages), n in forwards.items():
         if mode == 'quantize':
             predicted['fake_quant'] += n * n_sites[kind]
@@ -1205,6 +1287,7 @@ def bench_path(device, card):
             predicted['int4_gemm'] += n * int4
             predicted['int8_gemm'] += n * gemm
             predicted['int8_conv'] += n * conv
+            predicted_routes += times(routes[kind, stages], n)
     predicted['fake_quant'] += sum(n * n_weights[kind] for kind, n in weight_passes.items())
     forward_sections = ('bench', 'batch_sweep', 'serving_spread', 'mobilenet_serving')
     measured = {k: sum(by_section[sec][k] for sec in forward_sections) for k in launches}
@@ -1213,6 +1296,10 @@ def bench_path(device, card):
         per_forward_table={'resnet50_plain': tables['ResNet', ()],
                            'resnet50_packed': tables['ResNet', (1, 2, 3, 4)],
                            'mobilenet_v2': tables['MobileNetV2', ()]},
+        routes_per_forward={'resnet50_plain': routes['ResNet', ()],
+                            'resnet50_packed': routes['ResNet', (1, 2, 3, 4)],
+                            'mobilenet_v2': routes['MobileNetV2', ()]},
+        route_launches=route_counts, predicted_route_launches=predicted_routes,
         forwards={f'{m}:{k}:{"packed" if st else "plain"}': n
                   for (m, k, st), n in sorted(forwards.items())},
         weight_passes=weight_passes, launches=launches, launches_by_section=by_section,
@@ -1223,6 +1310,12 @@ def bench_path(device, card):
           f'a kernel of the bench path was never launched: {launches}')
     check(measured == predicted,
           f'bench forwards launched {measured}, the site tables predict {predicted}')
+    # MobileNet-v2: the 17 depthwise convs on the direct route, its two K = 24
+    # GEMMs on mma.sync, the 33 others on wgmma; ResNet-50 all on wgmma
+    check(routes['MobileNetV2', ()] == Counter(wgmma=33, mma_sync=2, depthwise=17)
+          and routes['ResNet', ()] == Counter(wgmma=34, implicit_gemm=19)
+          and route_counts == predicted_routes,
+          f'bench routes launched {route_counts}, the route tables predict {predicted_routes}')
     probes = {sec: {k: v for k, v in by_section[sec].items() if v}
               for sec in ('stochastic_smoke', 'mxu_rate_probe', 'dma_probe')}
     check(probes['stochastic_smoke'] == {'fake_quant': 3}
@@ -1370,6 +1463,10 @@ def main():
           f"{srep['predicted_conv_launches']}")
     check(np.isfinite([srep['top1'], srep['top5'], srep['loss']]).all()
           and all(srep['finite'].values()), f"non-finite serving output: {srep['finite']}")
+    check(srep['routes_per_forward'] == Counter(wgmma=34, implicit_gemm=19)
+          and srep['route_launches'] == srep['predicted_route_launches'],
+          f"serving routes launched {srep['route_launches']}, the route table predicts "
+          f"{srep['predicted_route_launches']}")
     check(srep['dynamic_recorded_sites'] == srep['gemm_per_forward'] + srep['conv_per_forward']
           and srep['frozen_sites_s2d_stem'] == srep['frozen_sites'] + 1
           and srep['s2d_stem_kernel'] == ['torch.int8', [64, 12, 4, 4]]
@@ -1394,6 +1491,9 @@ def main():
           and prep['per_forward_measured']['fallback'] == list(prep['per_forward_table']['plain'])
           and prep['per_forward_measured']['fallback'][0] == 0 and prep['fallback_equals_plain'],
           f'packed path launches per forward: {prep}')
+    check(prep['route_launches'] == prep['predicted_route_launches'],
+          f"packed path routes launched {prep['route_launches']}, the route tables predict "
+          f"{prep['predicted_route_launches']}")
     check(np.isfinite([prep['top1'], prep['top5'], prep['loss']]).all()
           and all(prep['finite'].values()) and prep['packed_out_keys'] == 4,
           f'packed path output: {prep}')

@@ -15,15 +15,35 @@
 // Positions outside the image contribute 0: zero padding in the integer
 // domain, exact at zero point 0.
 //
-// Per group this is the product of int8_mma.cuh with M = N*Ho*Wo rows,
-// O / groups columns and K = KH*KW*Cg: the weight already is the transposed
-// right operand with K running (kh, kw, c) contiguously, and the left operand
+// Two routes, chosen by shape (int_conv.conv_route decides and passes
+// `route`; this file checks the same condition and refuses a mismatch):
+//
+// Route 1, depthwise (groups == C == O, any KH x KW, stride and padding): a
+// direct kernel without tensor cores.  A thread owns 16 consecutive channels
+// of one output position: one 16-byte load per filter tap (C % 16 == 0 and an
+// aligned x; otherwise byte by byte, masked), the block's weights staged once
+// in shared memory as 4-tap words, four 16-byte stores of float32 (two of
+// bfloat16) along C.  The arithmetic is counted in instructions, not bytes: 9
+// MACs an output at one sign extension and one IMAD a byte would cost ~2
+// instructions a MAC, more than the byte bound allows at [128,144,56,56].
+// So the taps go in groups of four (the
+// last group padded with zero weights): the four 16-byte tap vectors of a
+// group are transposed word by word with __byte_perm (eight a 4 x 4 block)
+// so that each word holds four taps of one channel, and one __dp4a sums them:
+// 12 instructions for 16 MACs.  Memory bounds what is left: the float32
+// output is four times the int8 input, so the stores are what to get right.
+//
+// Route 0, every other conv: per group the product of int8_mma.cuh with M =
+// N*Ho*Wo rows, O / groups columns and K = KH*KW*Cg: the weight already is
+// the transposed right operand with K running (kh, kw, c) contiguously, and
+// the left operand
 // is never written to memory: the loader below resolves an output row to its
 // image position once and gathers each 16-byte piece of K from the image when
 // the tile is staged.  With Cg a multiple of 16 a piece lies inside one filter
 // tap and is one aligned 16-byte load; otherwise (the space-to-depth stem with
-// Cg = 12, grouped and depthwise convolutions) each byte is located and
-// guarded on its own, a generic loop that is correct for any groups.
+// Cg = 12, grouped convolutions, depthwise with a multiplier) each byte is
+// located and guarded on its own, a generic loop that is correct for any
+// groups.
 //
 // Bound: a 3x3 conv of ResNet-50 does 2*9*C operations per output, which
 // costs one int8 byte read and four float32 bytes written: up to C = 128 the
@@ -84,39 +104,218 @@ struct ConvA {
   }
 };
 
+// ------------------------------------------------ the direct depthwise route
+
+constexpr int kDwThreads = 256;
+constexpr int kDwMaxSmem = 48 * 1024;
+
+// 16 bytes of channels c0 .. c0 + 15 at p (p points at channel c0); channels
+// at or beyond C read as 0.  `vec`: C % 16 == 0 and x is 16-byte aligned.
+__device__ __forceinline__ uint4 load_channels(const int8_t* __restrict__ p, int left, bool vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j < left) w[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(p[j])) << (8 * (j & 3));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void store_channels(float* p, const float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    reinterpret_cast<float4*>(p)[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  }
+}
+
+__device__ __forceinline__ void store_channels(__nv_bfloat16* p, const float (&v)[16]) {
+  uint32_t w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  reinterpret_cast<uint4*>(p)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  reinterpret_cast<uint4*>(p)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Block (blockDim.x groups of 16 channels, blockDim.y output positions), grid
+// (position blocks, channel blocks); a block walks the positions with a
+// stride of gridDim.x * blockDim.y, so the weights it stages in shared memory
+// serve many positions.  Shared memory: s_w[g * cb + c] = taps 4g .. 4g + 3
+// of the block's channel c as one word, byte j for tap 4g + j, zero beyond the
+// filter.
+template <typename OutT>
+__global__ void __launch_bounds__(kDwThreads)
+int8_depthwise_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                      OutT* __restrict__ out, const float* __restrict__ alpha,
+                      const float* __restrict__ bias, int64_t positions, int H, int W, int C,
+                      int KH, int KW, int sh, int sw, int ph, int pw, int Ho, int Wo, int relu,
+                      int vec_in, int vec_out) {
+  extern __shared__ uint32_t s_w[];
+  const int taps = KH * KW, groups4 = (taps + 3) / 4;
+  const int cb = blockDim.x * 16, c_base = blockIdx.y * cb;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < groups4 * cb; i += nthreads) {
+    const int g = i / cb, c = c_base + i % cb;
+    uint32_t word = 0u;
+    for (int j = 0; j < 4 && c < C && 4 * g + j < taps; ++j) {
+      word |= static_cast<uint32_t>(static_cast<uint8_t>(w[static_cast<int64_t>(c) * taps + 4 * g + j]))
+              << (8 * j);
+    }
+    s_w[i] = word;
+  }
+  __syncthreads();
+
+  const int c0 = c_base + threadIdx.x * 16, left = C - c0;
+  if (left <= 0) return;
+  float al[16], be[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    al[i] = i < left ? alpha[c0 + i] : 0.f;
+    be[i] = (i < left && bias != nullptr) ? bias[c0 + i] : 0.f;
+  }
+  const uint4* wv0 = reinterpret_cast<const uint4*>(s_w + threadIdx.x * 16);
+
+  for (int64_t pos = static_cast<int64_t>(blockIdx.x) * blockDim.y + threadIdx.y; pos < positions;
+       pos += static_cast<int64_t>(gridDim.x) * blockDim.y) {
+    int acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0;
+    const int wo = static_cast<int>(pos % Wo);
+    const int64_t t = pos / Wo;
+    const int ho = static_cast<int>(t % Ho);
+    const int64_t n = t / Ho;
+    const int8_t* xn = x + n * H * W * C + c0;
+    const int hi0 = ho * sh - ph, wi0 = wo * sw - pw;
+    int kh = 0, kw = 0;  // the filter tap of slot j of group g: 4g + j = kh * KW + kw
+    for (int g = 0; g < groups4; ++g) {
+      uint4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (4 * g + j < taps) {
+          const int hi = hi0 + kh, wi = wi0 + kw;
+          if (static_cast<unsigned>(hi) < static_cast<unsigned>(H) &&
+              static_cast<unsigned>(wi) < static_cast<unsigned>(W)) {
+            v[j] = load_channels(xn + (static_cast<int64_t>(hi) * W + wi) * C, left, vec_in != 0);
+          }
+          if (++kw == KW) {
+            kw = 0;
+            ++kh;
+          }
+        }
+      }
+      const uint4* wv = wv0 + g * (cb / 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // word q of each tap vector holds channels 4q .. 4q + 3; transpose
+        // the 4 x 4 bytes so that word k holds the four taps of channel 4q + k
+        const uint32_t x0 = (&v[0].x)[q], x1 = (&v[1].x)[q], x2 = (&v[2].x)[q],
+                       x3 = (&v[3].x)[q];
+        const uint32_t lo01 = __byte_perm(x0, x1, 0x5140), hi01 = __byte_perm(x0, x1, 0x7362);
+        const uint32_t lo23 = __byte_perm(x2, x3, 0x5140), hi23 = __byte_perm(x2, x3, 0x7362);
+        const uint4 wq = wv[q];
+        acc[4 * q + 0] = __dp4a(static_cast<int>(__byte_perm(lo01, lo23, 0x5410)),
+                                static_cast<int>(wq.x), acc[4 * q + 0]);
+        acc[4 * q + 1] = __dp4a(static_cast<int>(__byte_perm(lo01, lo23, 0x7632)),
+                                static_cast<int>(wq.y), acc[4 * q + 1]);
+        acc[4 * q + 2] = __dp4a(static_cast<int>(__byte_perm(hi01, hi23, 0x5410)),
+                                static_cast<int>(wq.z), acc[4 * q + 2]);
+        acc[4 * q + 3] = __dp4a(static_cast<int>(__byte_perm(hi01, hi23, 0x7632)),
+                                static_cast<int>(wq.w), acc[4 * q + 3]);
+      }
+    }
+
+    // the dequant epilogue of int8_mma.cuh, with this thread's alpha and bias
+    float v[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float y = __fmul_rn(__int2float_rn(acc[i]), al[i]);
+      if (bias != nullptr) y = __fadd_rn(y, be[i]);
+      v[i] = relu != 0 ? fmaxf(y, 0.f) : y;
+    }
+    OutT* o = out + pos * C + c0;
+    if (vec_out != 0 && left >= 16) {
+      store_channels(o, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (i < left) cnnq::store_pair(o + i, v[i], 0.f, false);
+      }
+    }
+  }
+}
+
+template <typename OutT>
+int launch_depthwise(const void* x, const void* w, void* out, const void* alpha, const void* bias,
+                     int64_t positions, int h, int wd, int c, int kh, int kw, int sh, int sw, int ph,
+                     int pw, int ho, int wo, int relu, cudaStream_t stream) {
+  if (static_cast<int64_t>(kh) * kw > 2147483647LL / 64) return -1;
+  const int64_t groups4 = (static_cast<int64_t>(kh) * kw + 3) / 4;
+  const int vectors = (c + 15) / 16;
+  // up to 16 channel vectors a block, fewer where the staged weights would
+  // not fit in 48 KB (a filter of thousands of taps)
+  int bx = vectors < 16 ? vectors : 16;
+  while (bx > 1 && groups4 * bx * 64 > kDwMaxSmem) --bx;
+  const int by = kDwThreads / bx;
+  const int64_t smem = groups4 * bx * 64;
+  if (smem > kDwMaxSmem) return -1;
+  const int64_t need = (positions + by - 1) / by;
+  const int gx = static_cast<int>(need < 4096 ? need : 4096);
+  const int gy = (vectors + bx - 1) / bx;
+  if (gy > 65535) return -1;
+  const bool vec_in = c % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_out = (static_cast<int64_t>(c) * sizeof(OutT)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  int8_depthwise_kernel<OutT><<<dim3(gx, gy), dim3(bx, by), static_cast<size_t>(smem), stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), static_cast<OutT*>(out),
+      static_cast<const float*>(alpha), static_cast<const float*>(bias), positions, h, wd, c, kh, kw,
+      sh, sw, ph, pw, ho, wo, relu, vec_in, vec_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// out_dtype: 0 = float32, 1 = bfloat16.  bias may be null.  Returns
-// cudaGetLastError() after the launch, or -1 for arguments the kernel does
-// not take; the caller raises on any non-zero code.
+// out_dtype: 0 = float32, 1 = bfloat16.  bias may be null.  route: 1 =
+// direct depthwise, 0 = implicit GEMM; it must be the route the shape takes.
+// Returns cudaGetLastError() after the launch, or -1 for arguments the kernel
+// does not take; the caller raises on any non-zero code.
 extern "C" int cnnq_int8_conv(const void* x, const void* w, void* out, const void* alpha,
                               const void* bias, int n, int h, int wd, int c, int o, int kh, int kw,
                               int sh, int sw, int ph, int pw, int groups, int relu, int out_dtype,
-                              void* stream) {
+                              int route, void* stream) {
   if (n < 0 || h <= 0 || wd <= 0 || c <= 0 || o <= 0 || kh <= 0 || kw <= 0 || sh <= 0 || sw <= 0 ||
-      ph < 0 || pw < 0 || groups <= 0 || c % groups != 0 || o % groups != 0) {
+      ph < 0 || pw < 0 || groups <= 0 || c % groups != 0 || o % groups != 0 || out_dtype < 0 ||
+      out_dtype > 1) {
     return -1;
   }
+  if (route != ((groups == c && c == o) ? 1 : 0)) return -1;
   const int ho = (h + 2 * ph - kh) / sh + 1, wo = (wd + 2 * pw - kw) / sw + 1;
   if (h + 2 * ph < kh || wd + 2 * pw < kw) return -1;
   const int64_t M = static_cast<int64_t>(n) * ho * wo;
   if (M == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    return out_dtype == 0 ? launch_depthwise<float>(x, w, out, alpha, bias, M, h, wd, c, kh, kw, sh,
+                                                    sw, ph, pw, ho, wo, relu, s)
+                          : launch_depthwise<__nv_bfloat16>(x, w, out, alpha, bias, M, h, wd, c, kh,
+                                                            kw, sh, sw, ph, pw, ho, wo, relu, s);
+  }
   const int cg = c / groups;
   const int64_t K = static_cast<int64_t>(kh) * kw * cg;
   if (K > 2147483647LL - 64) return -1;
   const int8_t* xp = static_cast<const int8_t*>(x);
   const ConvA A{xp, M, h, wd, c, cg, kw, sh, sw, ph, pw, ho, wo, static_cast<int>(K),
                 (cg % 16 == 0) && (reinterpret_cast<uintptr_t>(xp) % 16 == 0)};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (out_dtype == 0) {
     rc = cnnq::launch_int8_dequant<ConvA, float>(A, w, out, alpha, bias, M, o / groups, K, o, groups,
                                              relu, s);
-  } else if (out_dtype == 1) {
+  } else {
     rc = cnnq::launch_int8_dequant<ConvA, __nv_bfloat16>(A, w, out, alpha, bias, M, o / groups, K, o,
                                                      groups, relu, s);
-  } else {
-    return -1;
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

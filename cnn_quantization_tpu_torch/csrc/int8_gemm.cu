@@ -10,9 +10,17 @@
 // a is [M, K] int8 row-major (an NHWC activation seen as [N*H*W, C]), bt is
 // [N, K] int8 row-major, i.e. the right operand transposed (a 1x1 OIHW conv
 // weight or an [out, in] linear weight as stored), out is [M, N] float32 or
-// bfloat16.  The block-level product, the masking of ragged M, N and K (the
-// TPU kernel pads all three to 256 instead) and the epilogue are in
-// int8_mma.cuh.
+// bfloat16.
+//
+// Two routes, chosen by shape, never by error (int_matmul.gemm_route decides
+// and passes `route`; this file checks the same condition and refuses a
+// mismatch):
+//   route 1, K % 16 == 0 and a, bt 16-byte aligned: the TMA + wgmma pipeline
+//     of int8_wgmma.cuh (every GEMM of ResNet-50's serving path);
+//   route 0, everything else (MobileNet-v2's K = 24): the mma.sync block
+//     product of int8_mma.cuh, which masks ragged M, N and K itself (the TPU
+//     kernel pads all three to 256 instead).
+// Both compute the same exact int32 sums and the same epilogue, bit for bit.
 //
 // Bound at the serving path's shapes: the 1x1 convs of ResNet-50's first
 // stages move far more bytes (a float32 output row per input row) than they
@@ -20,6 +28,7 @@
 // the int8 tensor-core rate.
 
 #include "int8_mma.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -46,26 +55,33 @@ struct DenseA {
 }  // namespace
 
 // out_dtype: 0 = float32, 1 = bfloat16.  beta may be null (no addition).
+// route: 1 = TMA + wgmma, 0 = mma.sync; it must be the route the shape takes.
 // Returns cudaGetLastError() after the launch, or -1 for arguments the kernel
 // does not take; the caller raises on any non-zero code.
 extern "C" int cnnq_int8_gemm(const void* a, const void* bt, void* out, const void* alpha,
                               const void* beta, int64_t M, int64_t N, int64_t K, int relu,
-                              int out_dtype, void* stream) {
-  if (M < 0 || N < 0 || K <= 0) return -1;
+                              int out_dtype, int route, void* stream) {
+  if (M < 0 || N < 0 || K <= 0 || out_dtype < 0 || out_dtype > 1) return -1;
+  if (route != (cnnq::wg::tma_describable(a, bt, K) ? 1 : 0)) return -1;
   if (M == 0 || N == 0) return 0;
   if (K > 2147483647LL - 64) return -1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (route == 1) {
+    rc = out_dtype == 0
+             ? cnnq::wg::launch_int8_wgmma<float>(a, bt, out, alpha, beta, M, N, K, relu, s)
+             : cnnq::wg::launch_int8_wgmma<__nv_bfloat16>(a, bt, out, alpha, beta, M, N, K, relu, s);
+    if (rc != 0) return rc;
+    return static_cast<int>(cudaGetLastError());
+  }
   const int8_t* ap = static_cast<const int8_t*>(a);
   const DenseA A{ap, M, static_cast<int>(K),
                  (K % 16 == 0) && (reinterpret_cast<uintptr_t>(ap) % 16 == 0)};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc;
   if (out_dtype == 0) {
     rc = cnnq::launch_int8_dequant<DenseA, float>(A, bt, out, alpha, beta, M, N, K, N, 1, relu, s);
-  } else if (out_dtype == 1) {
+  } else {
     rc = cnnq::launch_int8_dequant<DenseA, __nv_bfloat16>(A, bt, out, alpha, beta, M, N, K, N, 1, relu,
                                                       s);
-  } else {
-    return -1;
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

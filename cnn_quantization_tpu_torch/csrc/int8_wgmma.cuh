@@ -1,0 +1,582 @@
+// TMA + wgmma int8 matrix product with the dequant epilogue for Hopper
+// (sm_90a): the route of int8_gemm.cu for every shape that the Tensor Memory
+// Accelerator can describe (K % 16 == 0, both operands 16-byte aligned).
+//
+//   out[m, n] = cast(relu?(float(sum_k A[m, k] * Bt[n, k]) * alpha[n] + beta[n]))
+//
+// A is [M, K] int8 row-major, Bt is [N, K] int8 row-major: both K-major, the
+// only layout wgmma takes for 8-bit operands, and the layout in which the
+// serving path holds them (a channels_last activation, a stored weight).
+//
+// Design.  A persistent grid of blocks, each of two consumer warpgroups and
+// one producer warp, walks 128 x BN output tiles (tile t, t + gridDim.x, ...).
+// The producer's one thread keeps a ring of kStages shared-memory stages full:
+// per stage one TMA load of the A tile (128 rows x 128 bytes of K) and one of
+// the Bt tile (BN rows x 128 bytes), 2-D tensor maps with SWIZZLE_128B, the
+// completion counted in bytes on the stage's `full` mbarrier.  TMA's
+// out-of-bounds fill writes zeros, so ragged M, N and K need no masking in
+// the main loop: a zero byte adds nothing to the exact int32 sum.  Each
+// consumer warpgroup owns 64 rows of the tile and runs four
+// wgmma.mma_async.m64nBNk32.s32.s8.s8 per stage (32 bytes of K each, the
+// descriptor's start address advanced by 32 bytes inside the 128-byte swizzle
+// row), its int32 sums in registers; after the stage's wgmma group completes,
+// one lane of each consumer warp arrives on the stage's `empty` mbarrier and
+// the producer refills it.  The ring runs on across tiles, so the producer
+// loads the next tile while the consumers run this tile's epilogue.
+//
+// BN (64, 128 or 256) is picked per shape at launch (see pick_bn): 64 for
+// N <= 64, 256 where K is long enough for the tensor-core rate to bound, 128
+// for the rest.  The two narrow widths run two blocks an SM (3 and 2 stages
+// beside their staging buffers), 256 one block with 4 stages.
+//
+// Accumulator layout of wgmma m64nN with 32-bit sums (not mma.sync's 16 x 8
+// tile per warp): warp w of the warpgroup holds rows 16w .. 16w + 15; lane l
+// holds, for each 8-column slab j, d[4j + 0] at (row 16w + l/4, column
+// 8j + 2(l%4)), d[4j + 1] one column right, d[4j + 2] and d[4j + 3] the same
+// two columns eight rows down.
+//
+// Epilogue.  dequant (int8_mma.cuh) per element, regrouped into 16-byte
+// chunks: for float32 the two lanes of a pair swap one row's two values by a
+// shuffle, so each lane holds four consecutive columns of one row; for
+// bfloat16 the four lanes of a quad transpose their four 32-bit words (two
+// slabs x two rows), so each lane holds eight consecutive columns of one row.
+// Where each output row is a multiple of 16 bytes and BN <= 128 (the
+// memory-bound shapes, which write far more than they read), the chunks go to
+// a staging buffer in shared memory and TMA stores write them out, clipped to
+// M and N: the write-heavy shapes ran at a fraction of the memory rate with
+// stores from the threads.  Otherwise (BN = 256, or rows that are not a
+// multiple of 16 bytes) each lane stores its chunks itself, element by
+// element beyond N, and rows beyond M are not stored.
+//
+// Numerics as the mma.sync route: exact int32 sums, __fmul_rn then __fadd_rn
+// then fmaxf then the cast, built with --fmad=false.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder itself comes from the driver at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "int8_mma.cuh"
+
+namespace cnnq {
+namespace wg {
+
+constexpr int kBM = 128;                       // tile rows: two consumer warpgroups of 64
+constexpr int kBK = 128;                       // bytes of K per stage: one 128-byte swizzle row
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
+
+// stages of the ring and blocks an SM for each tile width; the narrow tiles
+// leave room for two blocks an SM beside their staging buffers
+template <int BN>
+struct Tile;
+template <>
+struct Tile<64> {
+  static constexpr int kStages = 3, kMinBlocks = 2;
+};
+template <>
+struct Tile<128> {
+  static constexpr int kStages = 2, kMinBlocks = 2;
+};
+template <>
+struct Tile<256> {
+  static constexpr int kStages = 4, kMinBlocks = 1;
+};
+
+// The output staging of one consumer warpgroup (BN <= 128, rows a multiple
+// of 16 bytes): its 64 rows of the tile in passes of up to two TMA store
+// boxes, each box 64 rows x 128 bytes with the 128-byte swizzle (16-byte
+// chunk c of row r lies at chunk c ^ (r % 8)), written out by TMA stores.
+template <int BN, typename OutT>
+struct Staging {
+  static constexpr bool kOn = BN <= 128;
+  static constexpr int kBoxCols = 128 / static_cast<int>(sizeof(OutT));
+  static constexpr int kPassCols = BN < 2 * kBoxCols ? BN : 2 * kBoxCols;
+  static constexpr int kBoxes = kPassCols / kBoxCols;
+  static constexpr int kPasses = BN / kPassCols;
+  static constexpr int kBytes = kOn ? kBoxes * 64 * 128 : 0;
+};
+
+template <int BN, typename OutT>
+constexpr size_t smem_bytes() {
+  // the stages, the two warpgroups' staging buffers, two mbarriers a stage,
+  // and slack to align the stages to the 1024-byte swizzle atom
+  return static_cast<size_t>(Tile<BN>::kStages) * (kBM + BN) * kBK +
+         2 * Staging<BN, OutT>::kBytes + 16 * Tile<BN>::kStages + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one 2-D box of `map` at (inner coordinate c0, row c1) into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile written by TMA with SWIZZLE_128B: rows
+// of 128 bytes, 8-row (1024-byte) swizzle atoms stacked along M or N
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;         // start address, 16-byte units
+  d |= static_cast<uint64_t>(1) << 16;          // leading byte offset: unused for this layout
+  d |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset: the next 8-row atom
+  d |= static_cast<uint64_t>(1) << 62;          // layout: 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses to the sums across the asynchronous wgmma
+template <int R>
+__device__ __forceinline__ void fence_sums(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D (+)= A(64 x 32, K-major, shared) * B(32 x N, K-major, shared), s8 x s8 -> s32;
+// scale_d = 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k32(int (&d)[128], uint64_t da, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BN == 64) {
+    wgmma_m64n64k32(d, da, db, scale_d);
+  } else if constexpr (BN == 128) {
+    wgmma_m64n128k32(d, da, db, scale_d);
+  } else {
+    wgmma_m64n256k32(d, da, db, scale_d);
+  }
+}
+
+__device__ __forceinline__ float dequant_at(int acc, const float* __restrict__ alpha,
+                                            const float* __restrict__ beta, int col, int N,
+                                            bool relu) {
+  return col < N ? dequant(acc, alpha[col], beta, col, relu) : 0.f;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Regroups one consumer warpgroup's sums of slabs j0 .. j1 - 1 (8 columns
+// each; j0, j1 even) into 16-byte chunks of dequantized values and calls
+// emit(row, col, chunk) for each chunk of this lane: row inside the
+// warpgroup's 64, col the tile column of the chunk's first value.  float32:
+// the two lanes of a pair swap one row's two values by a shuffle, so a lane
+// holds four consecutive columns of one row; bfloat16: the four lanes of a
+// quad transpose their four 32-bit words (two slabs x two rows), so a lane
+// holds eight consecutive columns of one row.  Every lane must call it.
+template <typename OutT, int BN, typename Emit>
+__device__ __forceinline__ void regroup(const int (&acc)[BN / 2], const float* __restrict__ alpha,
+                                        const float* __restrict__ beta, int n0, int N, bool relu,
+                                        int j0, int j1, Emit emit) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int rl = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  if constexpr (sizeof(OutT) == 4) {
+    const bool even = (t & 1) == 0;
+#pragma unroll
+    for (int j = j0; j < j1; ++j) {
+      const int c = n0 + 8 * j + 2 * t;
+      const float v0 = dequant_at(acc[4 * j + 0], alpha, beta, c, N, relu);
+      const float v1 = dequant_at(acc[4 * j + 1], alpha, beta, c + 1, N, relu);
+      const float v2 = dequant_at(acc[4 * j + 2], alpha, beta, c, N, relu);
+      const float v3 = dequant_at(acc[4 * j + 3], alpha, beta, c + 1, N, relu);
+      // the even lane keeps row rl and takes its partner's two columns of rl;
+      // the odd lane keeps row rl + 8 and takes its partner's of rl + 8
+      const float q0 = __shfl_xor_sync(0xffffffffu, even ? v2 : v0, 1);
+      const float q1 = __shfl_xor_sync(0xffffffffu, even ? v3 : v1, 1);
+      const float4 v = even ? make_float4(v0, v1, q0, q1) : make_float4(q0, q1, v2, v3);
+      emit(even ? rl : rl + 8, 8 * j + 2 * t - (even ? 0 : 2),
+           make_uint4(__float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z),
+                      __float_as_uint(v.w)));
+    }
+  } else {
+#pragma unroll
+    for (int j = j0; j < j1; j += 2) {
+      // word k of this lane: (row rl + 8 (k & 1), slab j + (k >> 1)), its two columns
+      uint32_t w[4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int c = n0 + 8 * (j + s) + 2 * t;
+        const int* a = &acc[4 * (j + s)];
+        w[2 * s] = pack_bf16(dequant_at(a[0], alpha, beta, c, N, relu),
+                             dequant_at(a[1], alpha, beta, c + 1, N, relu));
+        w[2 * s + 1] = pack_bf16(dequant_at(a[2], alpha, beta, c, N, relu),
+                                 dequant_at(a[3], alpha, beta, c + 1, N, relu));
+      }
+      // lane t ends with word t of every lane of the quad, in column order
+      uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int send = (t + s) & 3, from = (t - s) & 3;
+        const uint32_t v = send == 0 ? w[0] : send == 1 ? w[1] : send == 2 ? w[2] : w[3];
+        const uint32_t got = __shfl_sync(0xffffffffu, v, (lane & ~3) | from);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) o[k] = from == k ? got : o[k];
+      }
+      emit(rl + 8 * (t & 1), 8 * (j + (t >> 1)), make_uint4(o[0], o[1], o[2], o[3]));
+    }
+  }
+}
+
+// The direct epilogue: each lane stores its chunks; rows beyond M are
+// skipped, and a chunk reaching beyond N, or any chunk where `vec` is false
+// (rows not a multiple of 16 bytes), goes element by element.
+template <int BN, typename OutT>
+__device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], OutT* out,
+                                           const float* __restrict__ alpha,
+                                           const float* __restrict__ beta, int64_t row0, int n0,
+                                           int64_t M, int N, bool relu, bool vec) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(OutT));
+  regroup<OutT, BN>(acc, alpha, beta, n0, N, relu, 0, BN / 8, [&](int r, int c, uint4 v) {
+    const int64_t row = row0 + r;
+    const int col = n0 + c;
+    if (row >= M) return;
+    OutT* p = out + row * N + col;
+    if (vec && col + kPer <= N) {
+      *reinterpret_cast<uint4*>(p) = v;
+      return;
+    }
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (col + i >= N) break;
+      if constexpr (sizeof(OutT) == 4) {
+        p[i] = __uint_as_float(w[i]);
+      } else {
+        p[i] = __ushort_as_bfloat16(static_cast<uint16_t>(w[i >> 1] >> (16 * (i & 1))));
+      }
+    }
+  });
+}
+
+// the 128 threads of consumer warpgroup g meet at named barrier 1 + g
+__device__ __forceinline__ void warpgroup_sync(int g) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// The staged epilogue, where every output row is a multiple of 16 bytes and
+// BN <= 128: per pass the warpgroup writes its chunks into the staging boxes
+// (16-byte chunk c of box row r at chunk c ^ (r % 8), the 128-byte swizzle),
+// then one thread hands the boxes to TMA, which writes whole rows and clips
+// rows beyond M and columns beyond N.  Before a pass overwrites the boxes,
+// that thread waits until the previous pass's stores have read them.
+template <int BN, typename OutT>
+__device__ __forceinline__ void store_tile_staged(const int (&acc)[BN / 2], const CUtensorMap* map,
+                                                  const float* __restrict__ alpha,
+                                                  const float* __restrict__ beta, int64_t row0,
+                                                  int n0, int N, bool relu, uint8_t* buf, int g) {
+  using S = Staging<BN, OutT>;
+  const bool leader = (threadIdx.x & 127) == 0;
+#pragma unroll
+  for (int p = 0; p < S::kPasses; ++p) {
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    warpgroup_sync(g);
+    regroup<OutT, BN>(acc, alpha, beta, n0, N, relu, p * S::kPassCols / 8,
+                      (p + 1) * S::kPassCols / 8, [&](int r, int c, uint4 v) {
+                        const int bytes = (c - p * S::kPassCols) * static_cast<int>(sizeof(OutT));
+                        const int box = bytes >> 7, chunk = (bytes & 127) >> 4;
+                        *reinterpret_cast<uint4*>(buf + box * (64 * 128) + r * 128 +
+                                                  ((chunk ^ (r & 7)) << 4)) = v;
+                      });
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    warpgroup_sync(g);
+    if (leader) {
+#pragma unroll
+      for (int b = 0; b < S::kBoxes; ++b) {
+        tma_store_2d(map, smem_u32(buf + b * 64 * 128), n0 + p * S::kPassCols + b * S::kBoxCols,
+                     static_cast<int>(row0));
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+}
+
+template <int BN, typename OutT>
+__global__ void __launch_bounds__(kThreads, Tile<BN>::kMinBlocks)
+int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                  const __grid_constant__ CUtensorMap map_out, OutT* __restrict__ out,
+                  const float* __restrict__ alpha, const float* __restrict__ beta, int M, int N,
+                  int K, int relu, int vec_out) {
+  constexpr int kStages = Tile<BN>::kStages;
+  constexpr uint32_t kABytes = kBM * kBK, kStageBytes = (kBM + BN) * kBK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  // stage s at tiles0 + s * kStageBytes, then the staging buffers, then
+  // kStages `full` mbarriers and kStages `empty` ones
+  const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
+  const uint32_t tiles0 = base + pad;
+  uint8_t* staging = smem_raw + pad + kStages * kStageBytes;
+  const uint32_t full0 = tiles0 + kStages * kStageBytes + 2 * Staging<BN, OutT>::kBytes;
+  const uint32_t empty0 = full0 + 8 * kStages;
+
+  const int num_m = (M + kBM - 1) / kBM;
+  const int tiles = num_m * ((N + BN - 1) / BN);
+  const int kblocks = (K + kBK - 1) / kBK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {
+    // the producer: one thread issues every TMA load of the block
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % num_m) * kBM, n0 = (tile / num_m) * BN;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);  // a fresh barrier passes parity 1 at once
+          const uint32_t dst = tiles0 + stage * kStageBytes, bar = full0 + 8 * stage;
+          mbar_expect_tx(bar, kStageBytes);
+          tma_load_2d(dst, &map_a, bar, kb * kBK, m0);
+          tma_load_2d(dst + kABytes, &map_b, bar, kb * kBK, n0);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g owns rows 64g .. 64g + 63 of each tile
+  const int g = warp >> 2;
+  int acc[BN / 2];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % num_m) * kBM, n0 = (tile / num_m) * BN;
+    for (int kb = 0; kb < kblocks; ++kb) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const uint32_t sa = tiles0 + stage * kStageBytes;
+      const uint64_t da = smem_desc(sa + g * 64 * kBK), db = smem_desc(sa + kABytes);
+      fence_sums(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 32; ++kk) {
+        wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_sums(acc);
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    const int64_t row0 = static_cast<int64_t>(m0) + 64 * g;
+    if constexpr (Staging<BN, OutT>::kOn) {
+      if (vec_out != 0) {
+        store_tile_staged<BN, OutT>(acc, &map_out, alpha, beta, row0, n0, N, relu != 0,
+                                    staging + g * Staging<BN, OutT>::kBytes, g);
+        continue;
+      }
+    }
+    store_tile<BN, OutT>(acc, out, alpha, beta, row0, n0, M, N, relu != 0, vec_out != 0);
+  }
+  // the last TMA stores must have read shared memory before the block ends
+  if (Staging<BN, OutT>::kOn && (threadIdx.x & 127) == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// ---------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled is a driver-API function and the build links only the
+// CUDA runtime: its address comes from the runtime's driver entry point query.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a row-major [rows, cols] matrix of `type` (elem bytes each), boxes of
+// box_rows rows x 128 bytes, 128-byte swizzle
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                     int64_t rows, int64_t cols, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * elem)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estride[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline CUtensorMapDataType map_type(float*) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT32; }
+inline CUtensorMapDataType map_type(__nv_bfloat16*) { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
+
+// What TMA can describe: every row stride a multiple of 16 bytes and both
+// bases 16-byte aligned.  int_matmul.gemm_route is the same test in Python.
+inline bool tma_describable(const void* a, const void* bt, int64_t K) {
+  return K % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(bt) % 16 == 0;
+}
+
+// the tile width for a shape: 64 for the memory-bound N <= 64, 256 where a
+// long K makes the tensor-core rate the bound, else 128
+inline int pick_bn(int64_t N, int64_t K) {
+  if (N <= 64) return 64;
+  if (N >= 256 && K >= 4096) return 256;
+  return 128;
+}
+
+template <int BN, typename OutT>
+int launch_bn(const void* a, const void* bt, OutT* out, const float* alpha, const float* beta,
+              int64_t M, int64_t N, int64_t K, int relu, cudaStream_t stream) {
+  CUtensorMap map_a, map_b, map_out = {};
+  if (!make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, M, K, kBM) ||
+      !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bt, N, K, BN)) {
+    return -1;
+  }
+  const bool vec = (N * static_cast<int64_t>(sizeof(OutT))) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (Staging<BN, OutT>::kOn && vec &&
+      !make_map(&map_out, map_type(out), static_cast<int>(sizeof(OutT)), out, M, N, 64)) {
+    return -1;
+  }
+  constexpr size_t smem = smem_bytes<BN, OutT>();
+  auto kernel = int8_wgmma_kernel<BN, OutT>;
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) != cudaSuccess ||
+      per_sm < 1) {
+    return -1;
+  }
+  const int64_t tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
+  if (tiles > 2147483647LL) return -1;
+  const int grid = static_cast<int>(tiles < static_cast<int64_t>(sms) * per_sm ? tiles : sms * per_sm);
+  kernel<<<grid, kThreads, smem, stream>>>(map_a, map_b, map_out, out, alpha, beta, static_cast<int>(M),
+                                           static_cast<int>(N), static_cast<int>(K), relu, vec);
+  return 0;
+}
+
+// The route's launch.  Returns -1 for a shape it does not take (the caller
+// checks tma_describable first) or a failed set-up, else 0 (the caller reads
+// cudaGetLastError).
+template <typename OutT>
+int launch_int8_wgmma(const void* a, const void* bt, void* out, const void* alpha, const void* beta,
+                      int64_t M, int64_t N, int64_t K, int relu, cudaStream_t stream) {
+  if (!tma_describable(a, bt, K) || M > 2147483647LL - kBM || N > 2147483647LL - 256 ||
+      K > 2147483647LL - kBK) {
+    return -1;
+  }
+  OutT* o = static_cast<OutT*>(out);
+  const float* al = static_cast<const float*>(alpha);
+  const float* be = static_cast<const float*>(beta);
+  switch (pick_bn(N, K)) {
+    case 64:
+      return launch_bn<64, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
+    case 256:
+      return launch_bn<256, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
+    default:
+      return launch_bn<128, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
+  }
+}
+
+}  // namespace wg
+}  // namespace cnnq

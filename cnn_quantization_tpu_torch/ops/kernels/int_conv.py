@@ -4,16 +4,24 @@ version, and the serving conv ``int8_conv`` built on them.
 
 Port of ``cnn_quantization_tpu/ops/kernels/int_conv.py``.  There ``int8_conv``
 (:63-108) is XLA's native int8 convolution; PyTorch on CUDA has no integer
-convolution, so the port writes it by hand: ``csrc/int8_conv.cu``, an
-implicit GEMM on the block product of ``csrc/int8_mma.cuh`` (no im2col buffer
-in device memory), built with nvcc for sm_90a at first use and bound with
-ctypes.  Activations are logical NCHW in channels_last memory, weights OIHW
-prepared once in channels_last memory so K runs (kh, kw, c) contiguously; zero
-padding happens in the integer domain (exact at zero point 0); strides,
-padding and groups (grouped and depthwise through a generic per-byte gather)
-are general.  A 3x3 conv of ResNet-50 does 2*9*C operations per output, which
-costs one int8 byte read and four float32 bytes written: up to C = 128 the
-memory rate bounds it, from C = 256 on the int8 tensor-core rate.
+convolution, so the port writes it by hand: ``csrc/int8_conv.cu``, built with
+nvcc for sm_90a at first use and bound with ctypes.  Activations are logical
+NCHW in channels_last memory, weights OIHW prepared once in channels_last
+memory so K runs (kh, kw, c) contiguously; zero padding happens in the
+integer domain (exact at zero point 0); strides, padding and groups are
+general.  Two routes, chosen by ``conv_route`` from the shape:
+
+* ``'depthwise'`` (groups == C == O, any filter, stride and padding): a direct
+  kernel without tensor cores, a thread for 16 channels of one output
+  position, four filter taps of a channel summed by one ``__dp4a``; memory
+  bounds it (a float32 output is four bytes for every int8 input byte);
+* ``'implicit_gemm'`` for every other conv (ResNet's 3x3 and strided 1x1
+  convs, the space-to-depth stem, ResNeXt's groups, depthwise with a
+  multiplier): the block product of ``csrc/int8_mma.cuh`` with the image
+  gathered on the fly (no im2col buffer in device memory).  A 3x3 conv of
+  ResNet-50 does 2*9*C operations per output, which costs one int8 byte read
+  and four float32 bytes written: up to C = 128 the memory rate bounds it,
+  from C = 256 on the int8 tensor-core rate.
 
 ``int8_conv`` keeps the JAX signature (layouts apart).  A convolution that is
 a plain matrix product (1x1, stride 1, no padding, one group) goes to the int8
@@ -26,7 +34,8 @@ bit, and is kept as a cross-check of the implicit-GEMM kernel.
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
 they launch the kernels or raise.  ``int8_conv_dequant.launches`` counts
-launches of the conv kernel, and nothing else.
+launches of the conv kernel, and nothing else; ``launches_depthwise`` and
+``launches_implicit_gemm`` count them by route.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ def _library():
         path, _ = build.build_library('int8_conv')
         lib = ctypes.CDLL(str(path))
         c_ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.cnnq_int8_conv.argtypes = [c_ptr] * 5 + [c_int] * 14 + [c_ptr]
+        lib.cnnq_int8_conv.argtypes = [c_ptr] * 5 + [c_int] * 15 + [c_ptr]
         lib.cnnq_int8_conv.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -78,6 +87,13 @@ def _quantize_act(x, act_bits: int, act_scale):
         return x, scale
     per = scale.view(1, -1, 1, 1) if scale.ndim == 1 else scale
     return quantize_sym_codes(x, per, act_bits), scale
+
+
+def conv_route(in_ch: int, out_ch: int, groups: int) -> str:
+    """The kernel route of an int8 conv: ``'depthwise'`` for groups == in_ch
+    == out_ch (one filter per channel), else ``'implicit_gemm'``.
+    ``csrc/int8_conv.cu`` checks the same condition."""
+    return 'depthwise' if groups == in_ch == out_ch else 'implicit_gemm'
 
 
 def _check_conv(x_q, w_codes, strides, padding, groups):
@@ -115,15 +131,20 @@ def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_d
     alpha = int_matmul.column_vector(alpha, o, x.device)
     bias = None if bias is None else int_matmul.column_vector(bias, o, x.device)
     out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=x.device)
+    route = conv_route(c, o, groups)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _library().cnnq_int8_conv(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), alpha.data_ptr(),
             None if bias is None else bias.data_ptr(), n, h, wd, c, o, kh, kw, sh, sw, ph, pw,
-            groups, int(fuse_relu), code, stream)
+            groups, int(fuse_relu), code, int(route == 'depthwise'), stream)
     if rc != 0:
-        raise RuntimeError(f'int8 conv kernel launch failed: CUDA error {rc}')
+        raise RuntimeError(f'int8 conv kernel launch failed ({route} route): CUDA error {rc}')
     int8_conv_dequant.launches += 1
+    if route == 'depthwise':
+        int8_conv_dequant.launches_depthwise += 1
+    else:
+        int8_conv_dequant.launches_implicit_gemm += 1
     return out.permute(0, 3, 1, 2)
 
 
@@ -142,6 +163,8 @@ def int8_conv_dequant(x_q, w_codes, alpha, bias=None, *, strides=(1, 1), padding
 
 
 int8_conv_dequant.launches = 0
+int8_conv_dequant.launches_depthwise = 0
+int8_conv_dequant.launches_implicit_gemm = 0
 
 
 def int_conv_exact(x_q, w_codes, strides, padding, groups) -> torch.Tensor:

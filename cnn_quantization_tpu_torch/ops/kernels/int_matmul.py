@@ -10,23 +10,32 @@ int_matmul.py`` (``int8_matmul_dequant`` :58-101, body ``_matmul_kernel``
     out[m, n] = C[m, n] * alpha[n] + beta[n]       (float32, then optional
                                                     ReLU, then the cast)
 
-The kernel is ``csrc/int8_gemm.cu`` (block product in ``csrc/int8_mma.cuh``),
-built with nvcc for sm_90a at first use and bound with ctypes.  On the
-true-int8 serving path it carries every 1x1 stride-1 convolution and the
-classifier.  What bounds it depends on the shape: a 1x1 conv of an early
-ResNet stage writes a float32 row for every int8 row it reads, so memory
-bounds it; a late stage with K in the thousands is bounded by the int8
-tensor-core rate.  Design: 128 x 64 output tiles, the K loop inside the block
-with int32 sums in registers (``mma.sync.m16n8k32.s8``), 16-byte loads along K
-of *both* operands, ragged M, N and K masked instead of padded.  Both operands
-want K contiguous, which is how the serving path holds them: an int8 NCHW
-activation in channels_last memory is a row-major ``[N*H*W, C]`` matrix, and a
-1x1 OIHW weight or an ``[out, in]`` linear weight is ``B`` transposed; the
-wrapper takes ``b_q`` as such a transposed view without copying.
+The kernel is ``csrc/int8_gemm.cu``, built with nvcc for sm_90a at first use
+and bound with ctypes.  On the true-int8 serving path it carries every 1x1
+stride-1 convolution and the classifier.  What bounds it depends on the shape:
+a 1x1 conv of an early ResNet stage writes a float32 row for every int8 row it
+reads, so memory bounds it; a late stage with K in the thousands is bounded by
+the int8 tensor-core rate.  Both operands want K contiguous, which is how the
+serving path holds them: an int8 NCHW activation in channels_last memory is a
+row-major ``[N*H*W, C]`` matrix, and a 1x1 OIHW weight or an ``[out, in]``
+linear weight is ``B`` transposed; the wrapper takes ``b_q`` as such a
+transposed view without copying.
+
+Two routes, chosen by ``gemm_route`` from the shape and the operands'
+alignment, never by error (a failure on either raises):
+
+* ``'wgmma'`` (``csrc/int8_wgmma.cuh``), where the Tensor Memory Accelerator
+  can describe both operands (K % 16 == 0, 16-byte aligned bases): a
+  persistent TMA + ``wgmma`` pipeline, 128 x 64/128/256 tiles picked per
+  shape, ragged edges zero-filled by TMA;
+* ``'mma_sync'`` (``csrc/int8_mma.cuh``) for the rest, e.g. MobileNet-v2's
+  K = 24: 128 x 64 tiles of ``mma.sync.m16n8k32.s8``, ragged M, N and K
+  masked.
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors it
 launches the kernel or raises.  ``int8_matmul_dequant.launches`` counts kernel
-launches, and nothing else.
+launches, and nothing else; ``launches_wgmma`` and ``launches_mma_sync`` count
+them by route.
 """
 
 from __future__ import annotations
@@ -49,7 +58,7 @@ def _library():
         lib = ctypes.CDLL(str(path))
         c_ptr, c_i64 = ctypes.c_void_p, ctypes.c_int64
         lib.cnnq_int8_gemm.argtypes = [c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_i64, c_i64, c_i64,
-                                       ctypes.c_int, ctypes.c_int, c_ptr]
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, c_ptr]
         lib.cnnq_int8_gemm.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -67,6 +76,14 @@ def check_out_dtype(out_dtype):
     if out_dtype not in _DTYPES:
         raise TypeError(f'int8 kernels write float32 or bfloat16, got {out_dtype}')
     return _DTYPES[out_dtype]
+
+
+def gemm_route(k: int, aligned: bool = True) -> str:
+    """The kernel route of an int8 GEMM with depth ``k``: ``'wgmma'`` where TMA
+    can describe both K-major operands (every row stride a multiple of 16
+    bytes, ``aligned``: both bases 16-byte aligned), else ``'mma_sync'``.
+    ``csrc/int8_gemm.cu`` checks the same condition."""
+    return 'wgmma' if k % 16 == 0 and aligned else 'mma_sync'
 
 
 def _check_operands(a_q, b_q):
@@ -89,14 +106,20 @@ def launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype):
     alpha = column_vector(alpha, n, a.device)
     beta = None if beta is None else column_vector(beta, n, a.device)
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    route = gemm_route(k, a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _library().cnnq_int8_gemm(
             a.data_ptr(), bt.data_ptr(), out.data_ptr(), alpha.data_ptr(),
-            None if beta is None else beta.data_ptr(), m, n, k, int(fuse_relu), code, stream)
+            None if beta is None else beta.data_ptr(), m, n, k, int(fuse_relu), code,
+            int(route == 'wgmma'), stream)
     if rc != 0:
-        raise RuntimeError(f'int8 GEMM kernel launch failed: CUDA error {rc}')
+        raise RuntimeError(f'int8 GEMM kernel launch failed ({route} route): CUDA error {rc}')
     int8_matmul_dequant.launches += 1
+    if route == 'wgmma':
+        int8_matmul_dequant.launches_wgmma += 1
+    else:
+        int8_matmul_dequant.launches_mma_sync += 1
     return out
 
 
@@ -113,6 +136,8 @@ def int8_matmul_dequant(a_q, b_q, alpha, beta=None, *, fuse_relu: bool = False,
 
 
 int8_matmul_dequant.launches = 0
+int8_matmul_dequant.launches_wgmma = 0
+int8_matmul_dequant.launches_mma_sync = 0
 
 
 def int_matmul_exact(a_q, b_q) -> torch.Tensor:

@@ -257,10 +257,12 @@ def device_time_by_kernel(fn):
 
 
 # device records by kernel class: the port's kernels by the loader or kernel
-# name nvcc gives them, PyTorch's elementwise passes, copies
-KERNEL_CLASSES = (('int4_gemm', 'Int4A'), ('int8_gemm', 'DenseA'), ('int8_conv', 'ConvA'),
-                  ('fake_quant', 'fake_quant_kernel'), ('stream_copy', 'stream_copy_kernel'),
-                  ('elementwise', 'elementwise_kernel'), ('memcpy', 'Memcpy'))
+# name nvcc gives them (each route of the int8 GEMM and conv), PyTorch's
+# elementwise passes, copies
+KERNEL_CLASSES = (('int4_gemm', ('Int4A',)), ('int8_gemm', ('DenseA', 'int8_wgmma_kernel')),
+                  ('int8_conv', ('ConvA', 'int8_depthwise_kernel')),
+                  ('fake_quant', ('fake_quant_kernel',)), ('stream_copy', ('stream_copy_kernel',)),
+                  ('elementwise', ('elementwise_kernel',)), ('memcpy', ('Memcpy',)))
 
 
 def device_ms_by_class(device_us) -> dict:
@@ -269,7 +271,8 @@ def device_ms_by_class(device_us) -> dict:
     out = {name: 0.0 for name, _ in KERNEL_CLASSES}
     out['other'] = 0.0
     for key, us in device_us.items():
-        name = next((n for n, needle in KERNEL_CLASSES if needle in key), 'other')
+        name = next((n for n, needles in KERNEL_CLASSES if any(s in key for s in needles)),
+                    'other')
         out[name] += us / 1e3
     return out
 

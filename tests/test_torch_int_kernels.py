@@ -302,14 +302,19 @@ def test_int8_kernels_match_plain_on_card():
     def codes(shape):
         return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).cuda()
 
-    a, bt = codes((300, 70)), codes((50, 70))
-    alpha, beta = torch.rand(50, generator=g).cuda(), torch.randn(50, generator=g).cuda()
-    got = im.int8_matmul_dequant(a, bt.t(), alpha, beta, fuse_relu=True)
-    want = im.int8_matmul_dequant_plain(a, bt.t(), alpha, beta, fuse_relu=True)
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    # both GEMM routes: mma.sync (K = 70) and TMA + wgmma (ragged M, N and K)
+    for m, k, n in ((300, 70, 50), (3001, 272, 1000)):
+        a, bt = codes((m, k)), codes((n, k))
+        alpha, beta = torch.rand(n, generator=g).cuda(), torch.randn(n, generator=g).cuda()
+        got = im.int8_matmul_dequant(a, bt.t(), alpha, beta, fuse_relu=True)
+        want = im.int8_matmul_dequant_plain(a, bt.t(), alpha, beta, fuse_relu=True)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    # both conv routes: implicit GEMM, and direct depthwise (C = 32; C = 40
+    # with odd H and W, no multiple of 16)
     for shape, o, k, s, p, groups in (((2, 16, 14, 14), 32, 3, 2, 1, 1),
                                       ((2, 12, 35, 35), 64, 4, 1, 0, 1),
-                                      ((2, 32, 15, 15), 32, 3, 1, 1, 32)):
+                                      ((2, 32, 15, 15), 32, 3, 1, 1, 32),
+                                      ((2, 40, 17, 13), 40, 3, 2, 1, 40)):
         x = codes(shape).contiguous(memory_format=torch.channels_last)
         w = codes((o, shape[1] // groups, k, k))
         alpha, bias = torch.rand(o, generator=g).cuda(), torch.randn(o, generator=g).cuda()
