@@ -29,10 +29,13 @@ run at batch 64:
     each distinct signature held against the plain version on the same
     inputs, then counted, every launch against the models' site tables.
 
-The int8 GEMM and the int8 conv have two routes each, chosen by shape (TMA +
-wgmma or mma.sync; direct depthwise or implicit GEMM): ``int8_kernels_vs_plain``
-holds every route against the plain version, and each path's phase holds the
-launches by route against the route functions applied to the model's modules.
+The integer kernels have routes chosen by shape: the int8 GEMM TMA + wgmma or
+mma.sync; the int8 conv direct depthwise, TMA im2col + wgmma or the mma.sync
+implicit GEMM; the int4 GEMM TMA + wgmma or mma.sync.  ``int8_kernels_vs_plain``
+and ``int4_kernel_vs_plain`` hold every route against the plain version, each
+path's phase holds the launches by route against the route functions applied
+to the model's modules, and ``int8_timing``/``int4_timing`` time each timed
+shape on its route and on the mma.sync route beside it.
 
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
 and ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
@@ -107,6 +110,13 @@ CONV_SHAPES = {
     's2d_stem': ((64, 12, 115, 115), 64, 4, 1, 0, 1, False),
     'grouped_32': ((64, 128, 56, 56), 128, 3, 1, 1, 32, True),
     'depthwise': ((64, 96, 28, 28), 96, 3, 2, 1, 96, True),
+    # ResNet-50's 3x3 convs of stages 2-4 at batch 128, a stride-2 3x3 at C =
+    # 64 and a ragged one (odd H and W, M = 630 no multiple of 128)
+    '3x3_s1_c128_b128': ((128, 128, 28, 28), 128, 3, 1, 1, 1, False),
+    '3x3_s1_c256_b128': ((128, 256, 14, 14), 256, 3, 1, 1, 1, False),
+    '3x3_s1_c512_b128': ((128, 512, 7, 7), 512, 3, 1, 1, 1, False),
+    '3x3_s2_c64': ((64, 64, 56, 56), 64, 3, 2, 1, 1, False),
+    '3x3_s2_c64_ragged': ((3, 64, 29, 27), 64, 3, 2, 1, 1, False),
     # MobileNet-v2 at batch 128: its widest depthwise conv and a strided one
     'dw_s1_c144_b128': ((128, 144, 56, 56), 144, 3, 1, 1, 144, True),
     'dw_s2_c96_b128': ((128, 96, 112, 112), 96, 3, 2, 1, 96, True),
@@ -115,7 +125,8 @@ CONV_SHAPES = {
 }
 # the two serving shapes and the bench's int8-rate probe
 TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048), (4096, 16384, 4096))
-TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', 'dw_s1_c144_b128', 'dw_s2_c96_b128')
+TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', '3x3_s1_c128_b128', '3x3_s1_c256_b128',
+               '3x3_s1_c512_b128', '1x1_s2_c256', 'dw_s1_c144_b128', 'dw_s2_c96_b128')
 REPLACES_INT4 = 'cnn_quantization_tpu/ops/kernels/int4_matmul.py:229'
 # the packed path's int4 GEMM calls at 224x224, batch 64: name -> (M, K, N, A
 # packed, residual, ReLU, out_mode); M = batch * H * W.  'rows' slices the rows
@@ -134,6 +145,8 @@ INT4_CASES = {
     'ragged_13': (13, 256, 256, True, True, True, 'packed'),
     'ragged_70_f32': (70, 64, 256, False, True, False, 'f32'),
     'ragged_70_n64': (70, 512, 64, True, False, True, 'int8'),
+    # K = 40, no multiple of 16: the mma.sync route by the route rule
+    'ragged_k40': (70, 40, 256, False, True, True, 'packed'),
 }
 TIMED_INT4 = ('s1_conv3', 's1_conv1', 's4_conv1', 's4_last_f32')
 REPLACES_COPY = 'bench.py:315'
@@ -364,18 +377,27 @@ def bf16_over_one_ulp(got, want):
     return int(((got - want).abs() > want.abs() * 2.0 ** -7 + 1e-30).sum())
 
 
+ROUTE_COUNTERS = {   # route_launches' key: (wrapper, its counter)
+    'wgmma': (im.int8_matmul_dequant, 'launches_wgmma'),
+    'mma_sync': (im.int8_matmul_dequant, 'launches_mma_sync'),
+    'depthwise': (ic.int8_conv_dequant, 'launches_depthwise'),
+    'im2col_wgmma': (ic.int8_conv_dequant, 'launches_im2col_wgmma'),
+    'implicit_gemm': (ic.int8_conv_dequant, 'launches_implicit_gemm'),
+    'int4_wgmma': (i4.int4_matmul, 'launches_wgmma'),
+    'int4_mma_sync': (i4.int4_matmul, 'launches_mma_sync'),
+}
+
+
 def route_launches():
     """Launches by route: the int8 GEMM's TMA + wgmma and mma.sync kernels,
-    the int8 conv's direct depthwise and implicit-GEMM kernels."""
-    return Counter(wgmma=im.int8_matmul_dequant.launches_wgmma,
-                   mma_sync=im.int8_matmul_dequant.launches_mma_sync,
-                   depthwise=ic.int8_conv_dequant.launches_depthwise,
-                   implicit_gemm=ic.int8_conv_dequant.launches_implicit_gemm)
+    the int8 conv's direct depthwise, TMA im2col + wgmma and implicit-GEMM
+    kernels, the int4 GEMM's TMA + wgmma and mma.sync kernels."""
+    return Counter({key: getattr(fn, attr) for key, (fn, attr) in ROUTE_COUNTERS.items()})
 
 
 def reset_route_launches():
-    im.int8_matmul_dequant.launches_wgmma = im.int8_matmul_dequant.launches_mma_sync = 0
-    ic.int8_conv_dequant.launches_depthwise = ic.int8_conv_dequant.launches_implicit_gemm = 0
+    for fn, attr in ROUTE_COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def int8_kernels_vs_plain(device):
@@ -403,8 +425,9 @@ def int8_kernels_vs_plain(device):
                     else:
                         bf16_over += bf16_over_one_ulp(got, want)
     for name in CONV_SHAPES:
-        shape, o, _, _, _, groups, _ = CONV_SHAPES[name]
-        routes[name] = ic.conv_route(shape[1], o, groups)
+        shape, o, k, s, p, groups, _ = CONV_SHAPES[name]
+        routes[name] = ic.conv_route(shape[1], o, groups, kernel=(k, k), strides=(s, s),
+                                     padding=(p, p))
         for qmax in (127, 7):
             args, kw = conv_case(name, qmax, gen, device)
             for dt in (torch.float32, torch.bfloat16):
@@ -421,7 +444,8 @@ def int8_kernels_vs_plain(device):
     emit('int8_kernels_vs_plain', gemm_max_abs_err_fp32=gemm_err,
          conv_max_abs_err_fp32=conv_err, bf16_elements_over_one_ulp=bf16_over, routes=routes,
          route_launches=launched)
-    check(all(launched[r] > 0 for r in ('wgmma', 'mma_sync', 'depthwise', 'implicit_gemm')),
+    check(all(launched[r] > 0 for r in ('wgmma', 'mma_sync', 'depthwise', 'im2col_wgmma',
+                                        'implicit_gemm')),
           f'a route of the int8 kernels was not held to its plain version: {launched}')
     check(all(v == 0.0 for v in gemm_err.values()), f'int8 GEMM != plain (fp32): {gemm_err}')
     check(all(v == 0.0 for v in conv_err.values()), f'int8 conv != plain (fp32): {conv_err}')
@@ -478,9 +502,10 @@ def serving_launches(model, stages=(), s2d_stem=False):
     ungrouped conv and every linear is an int8 GEMM (routed by
     ``int_matmul.gemm_route`` from its K), every other conv goes to the conv
     kernel (routed by ``int_conv.conv_route``), and the in_ch == 3 stem stays a
-    float conv unless it was space-to-depth transformed (12 channels).  In the
-    1-based ``stages`` that run packed, conv1, conv3 and the downsample conv of
-    every block are int4 GEMMs (route None)."""
+    float conv unless it was space-to-depth transformed (12 channels, 4x4).  In
+    the 1-based ``stages`` that run packed, conv1, conv3 and the downsample conv
+    of every block are int4 GEMMs (routed by ``int4_matmul.int4_route``; conv1
+    and the downsample take packed codes except in stage 1 block 0)."""
     for name, m in model.named_modules():
         if isinstance(m, QLinear):
             yield 'int8_gemm', im.gemm_route(m.weight.shape[1])
@@ -488,14 +513,17 @@ def serving_launches(model, stages=(), s2d_stem=False):
             stage = int(name[5]) if name.startswith('layer') else 0
             if m.in_ch == 3:
                 if s2d_stem:
-                    yield 'int8_conv', ic.conv_route(12, m.features, 1)
+                    yield 'int8_conv', ic.conv_route(12, m.features, 1, kernel=(4, 4))
             elif stage in stages and name.endswith(('.conv1', '.conv3', '.downsample.0')):
-                yield 'int4_gemm', None
+                a_packed = not name.startswith('layer1.0.') and not name.endswith('.conv3')
+                yield 'int4_gemm', 'int4_' + i4.int4_route(m.in_ch, a_packed)
             elif (tuple(m.weight.shape[2:]), m.strides, m.padding, m.groups) \
                     == ((1, 1), (1, 1), (0, 0), 1):
                 yield 'int8_gemm', im.gemm_route(m.in_ch)
             else:
-                yield 'int8_conv', ic.conv_route(m.in_ch, m.features, m.groups)
+                yield 'int8_conv', ic.conv_route(m.in_ch, m.features, m.groups,
+                                                 kernel=tuple(m.weight.shape[2:]),
+                                                 strides=m.strides, padding=m.padding)
 
 
 def launch_table(model, stages=(), s2d_stem=False):
@@ -664,7 +692,10 @@ def int8_timing(device, card):
     (the port never calls either): for the GEMM torch._int_mm (the int32
     product only, no epilogue); for a conv whose sums stay below 2^24 (exact
     in float32: the depthwise and the C = 64 shapes) F.conv2d on float32 codes
-    with TF32 off (the product alone, at 4-byte input).  No cache flush
+    with TF32 off (the product alone, at 4-byte input), for the others
+    torch._int_mm on the explicit im2col matrix (the product only, the im2col
+    excluded).  A conv on the im2col route is timed on the implicit GEMM as
+    well (``old_route_ms``; both outputs must be equal).  No cache flush
     between launches: the largest shapes exceed the 50 MB L2, the late-stage
     ones fit and are found warm, as their producer leaves them on the path."""
     gen = torch.Generator().manual_seed(2)
@@ -694,7 +725,16 @@ def int8_timing(device, card):
         plain_ms = cuda_ms(lambda: ic.int8_conv_dequant_plain(x, w, alpha, bias, **kw), iters=5,
                            warmup=1)
         out = ic.int8_conv_dequant(x, w, alpha, bias, **kw)
-        library_ms = None
+        route = ic.conv_route(x.shape[1], w.shape[0], kw['groups'], kernel=tuple(w.shape[2:]),
+                              strides=kw['strides'], padding=kw['padding'])
+        old_route_ms = None
+        if route == 'im2col_wgmma':
+            def old():
+                return ic.launch(x, w, alpha, bias, kw['strides'], kw['padding'], kw['groups'],
+                                 False, torch.float32, route='implicit_gemm')
+            check(torch.equal(old(), out), f'{name}: implicit GEMM != im2col route')
+            old_route_ms = cuda_ms(old)
+        library_ms, library = None, None
         if w[0].numel() * 127 * 127 < 2 ** 24:
             xf, wf = x.float(), w.float()
             tf32 = torch.backends.cudnn.allow_tf32
@@ -705,13 +745,21 @@ def int8_timing(device, card):
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
             del xf, wf
+            library = 'F.conv2d on float32 codes, TF32 off'
+        elif kw['groups'] == 1:
+            patches, _ = ic._extract_patches(x, w.shape[2], w.shape[3], kw['strides'],
+                                             kw['padding'])
+            w2 = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+            library_ms = cuda_ms(lambda: torch._int_mm(patches, w2.t()))
+            library = 'torch._int_mm on the im2col matrix: product only, im2col excluded'
+            del patches
         ops = 2 * out.numel() * w[0].numel()
         nbytes = x.numel() + w.numel() + 4 * out.numel() + 8 * w.shape[0]
         bound_ms, bound_by = int8_bound_ms(ops, nbytes)
         rows['int8_conv'].append(dict(
             shape=f'{list(x.shape)} * {list(w.shape)} stride {kw["strides"][0]}', out='float32',
             ms=ms, host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=library_ms,
-            route=ic.conv_route(x.shape[1], w.shape[0], kw['groups']),
+            library=library, route=route, old_route_ms=old_route_ms,
             bound_ms=bound_ms, bound_by=bound_by,
             tera_ops_per_s=ops / ms / 1e9, gb_per_s=nbytes / ms / 1e6))
     emit('int8_timing', card=card, **rows)
@@ -739,31 +787,51 @@ def int4_case(name, gen, device):
     return (a, bt.t(), alpha, beta), kw
 
 
+def int4_launch(args, kw, route):
+    """One int4 GEMM launch on ``route`` ('wgmma' where the call takes it, or
+    'mma_sync', which takes every call)."""
+    a, b, alpha, beta = args
+    return i4.launch(a, b, alpha, beta, kw.get('residual'), kw.get('res_scale'),
+                     kw.get('out_scale'), kw['a_packed'], kw['fuse_relu'], kw['out_mode'],
+                     kw['out_qmax'], kw.get('out_dtype', torch.float32), route=route)
+
+
 def int4_kernel_vs_plain(device):
     """The int4 GEMM kernel against its plain version in every mode the packed
-    path uses, at the path's own shapes, plus ragged M: codes and packed bytes
-    must be equal, float32 outputs bit-identical, bf16 within one ulp; and the
-    pack/unpack round trip on the card."""
+    path uses, at the path's own shapes, plus ragged M and a K that is no
+    multiple of 16, each call by its route and by the mma.sync route: codes
+    and packed bytes must be equal, float32 outputs bit-identical, bf16 within
+    one ulp; and the pack/unpack round trip on the card."""
     gen = torch.Generator().manual_seed(3)
-    errs, bf16_over = {}, 0
+    errs, bf16_over, routes = {}, 0, {}
+    before = route_launches()
     for name in INT4_CASES:
         args, kw = int4_case(name, gen, device)
-        got = i4.int4_matmul(*args, **kw)
         want = i4.int4_matmul_plain(*args, **kw)
-        torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == want.dtype, f'int4 {name}: shape or dtype')
-        if kw['out_mode'] == 'bf16':
-            bf16_over += bf16_over_one_ulp(got, want)
-            continue
-        # integer outputs compared as bytes; |difference| of codes for the report
-        errs[name] = float((got.float() - want.float()).abs().max())
-        check(torch.equal(got, want), f'int4 GEMM != plain in {name}: max abs {errs[name]}')
+        routes[name] = i4.int4_route(INT4_CASES[name][1], kw['a_packed'])
+        for route in (None, 'mma_sync'):
+            got = i4.int4_matmul(*args, **kw) if route is None else int4_launch(args, kw, route)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f'int4 {name}: shape or dtype')
+            if kw['out_mode'] == 'bf16':
+                bf16_over += bf16_over_one_ulp(got, want)
+                continue
+            # integer outputs compared as bytes; |difference| of codes for the report
+            err = float((got.float() - want.float()).abs().max())
+            errs[name] = max(errs.get(name, 0.0), err)
+            check(torch.equal(got, want),
+                  f'int4 GEMM != plain in {name} ({route or routes[name]}): max abs {err}')
+    launched = route_launches() - before
     codes = int8_codes((4096, 512), 7, gen, device)
     raw = torch.randint(-128, 128, (4096, 256), generator=gen, dtype=torch.int8).to(device)
     round_trip = bool(torch.equal(i4.unpack_int4(i4.pack_int4(codes)), codes)
                       and torch.equal(i4.pack_int4(i4.unpack_int4(raw)), raw))
     emit('int4_kernel_vs_plain', max_abs_err=errs, bf16_elements_over_one_ulp=bf16_over,
-         pack_unpack_round_trip=round_trip)
+         routes=routes, route_launches=launched, pack_unpack_round_trip=round_trip)
+    check(launched['int4_wgmma'] > 0 and launched['int4_mma_sync'] > 0
+          and routes['ragged_k40'] == 'mma_sync',
+          f'a route of the int4 GEMM was not held to its plain version: {launched}')
     check(bf16_over == 0, f'{bf16_over} int4 GEMM bf16 outputs off by more than one ulp')
     check(round_trip, 'pack_int4/unpack_int4 round trip on the card')
     return max(errs.values())
@@ -853,8 +921,8 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
                   forwards=sum(forwards.values()),
                   launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), launches)),
                   predicted_launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), predicted)),
-                  route_launches=route_counts, predicted_route_launches=predicted_routes,
-                  frozen_sites=len(scales),
+                  routes_per_forward=routes[all_stages], route_launches=route_counts,
+                  predicted_route_launches=predicted_routes, frozen_sites=len(scales),
                   packed_out_keys=sum(k.endswith(':out:packed') for k in scales),
                   fallback_equals_plain=fallback_equals_plain,
                   top1=res['top1'], top5=res['top5'], loss=res['loss'],
@@ -1001,8 +1069,8 @@ def packed_step_profile(eng, sp, scales, images, card):
 
 
 def int4_timing(device, card):
-    """The int4 GEMM at the packed path's heaviest shapes: kernel, plain
-    version, bound (bytes: A at half a byte a code when packed, the residual
+    """The int4 GEMM at the packed path's heaviest shapes: kernel on its route
+    and on the mma.sync route (``old_route_ms``), plain version, bound (bytes: A at half a byte a code when packed, the residual
     at half a byte, the output at its stored width) and one library call
     (torch._int_mm on unpacked int8 codes: the int32 product alone, no
     unpacking, no epilogue, a 4-byte output; the port never calls it)."""
@@ -1013,6 +1081,7 @@ def int4_timing(device, card):
         m, k, n, a_packed, with_res, _, mode = INT4_CASES[name]
         args, kw = int4_case(name, gen, device)
         ms = cuda_ms(lambda: i4.int4_matmul(*args, **kw))
+        old_route_ms = cuda_ms(lambda: int4_launch(args, kw, 'mma_sync'))
         host_paced_ms = cuda_ms(lambda: i4.int4_matmul(*args, **kw), head_start=False)
         plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(*args, **kw), iters=5, warmup=1)
         a_codes = i4.unpack_int4(args[0]) if a_packed else args[0]
@@ -1025,7 +1094,8 @@ def int4_timing(device, card):
         rows.append(dict(
             case=name, shape=f'[{m},{k}{"p" if a_packed else ""}]x[{k},{n}]'
                              f'{" + residual" if with_res else ""}', out=mode,
-            ms=ms, host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=library_ms,
+            route=i4.int4_route(k, a_packed), ms=ms, old_route_ms=old_route_ms,
+            host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by, tera_ops_per_s=ops / ms / 1e9,
             gb_per_s=nbytes / ms / 1e6))
     emit('int4_timing', card=card, int4_gemm=rows)
@@ -1311,9 +1381,11 @@ def bench_path(device, card):
     check(measured == predicted,
           f'bench forwards launched {measured}, the site tables predict {predicted}')
     # MobileNet-v2: the 17 depthwise convs on the direct route, its two K = 24
-    # GEMMs on mma.sync, the 33 others on wgmma; ResNet-50 all on wgmma
+    # GEMMs on mma.sync, the 33 others on wgmma; ResNet-50 all on wgmma and
+    # the im2col route, packed its 36 int4 GEMMs on wgmma
     check(routes['MobileNetV2', ()] == Counter(wgmma=33, mma_sync=2, depthwise=17)
-          and routes['ResNet', ()] == Counter(wgmma=34, implicit_gemm=19)
+          and routes['ResNet', ()] == Counter(wgmma=34, im2col_wgmma=19)
+          and routes['ResNet', (1, 2, 3, 4)] == Counter(int4_wgmma=36, wgmma=1, im2col_wgmma=16)
           and route_counts == predicted_routes,
           f'bench routes launched {route_counts}, the route tables predict {predicted_routes}')
     probes = {sec: {k: v for k, v in by_section[sec].items() if v}
@@ -1463,7 +1535,7 @@ def main():
           f"{srep['predicted_conv_launches']}")
     check(np.isfinite([srep['top1'], srep['top5'], srep['loss']]).all()
           and all(srep['finite'].values()), f"non-finite serving output: {srep['finite']}")
-    check(srep['routes_per_forward'] == Counter(wgmma=34, implicit_gemm=19)
+    check(srep['routes_per_forward'] == Counter(wgmma=34, im2col_wgmma=19)
           and srep['route_launches'] == srep['predicted_route_launches'],
           f"serving routes launched {srep['route_launches']}, the route table predicts "
           f"{srep['predicted_route_launches']}")
@@ -1491,7 +1563,8 @@ def main():
           and prep['per_forward_measured']['fallback'] == list(prep['per_forward_table']['plain'])
           and prep['per_forward_measured']['fallback'][0] == 0 and prep['fallback_equals_plain'],
           f'packed path launches per forward: {prep}')
-    check(prep['route_launches'] == prep['predicted_route_launches'],
+    check(prep['routes_per_forward'] == Counter(int4_wgmma=36, wgmma=1, im2col_wgmma=16)
+          and prep['route_launches'] == prep['predicted_route_launches'],
           f"packed path routes launched {prep['route_launches']}, the route tables predict "
           f"{prep['predicted_route_launches']}")
     check(np.isfinite([prep['top1'], prep['top5'], prep['loss']]).all()
@@ -1535,11 +1608,14 @@ def main():
     copy = stream_copy_timing(device, card)
 
     def int8_row(name, source, replaces, launches, err):
-        # the kernels line carries the heaviest shape; the other is in int8_timing
+        # the kernels line carries the heaviest shape; the others are in the
+        # timing phases.  kernel_route: the hand-written route that shape takes
         t = timing[name][0]
         return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
-                'shape': t['shape'], 'launches': launches, 'bench_launches': bench_launches[name],
+                'shape': t['shape'], 'kernel_route': t['route'], 'launches': launches,
+                'bench_launches': bench_launches[name],
                 'max_abs_err': max(err, bench_err[name]), 'ms': t['ms'],
+                'old_route_ms': t.get('old_route_ms'),
                 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
                 'bound_by': t['bound_by'], 'library_ms': t['library_ms']}
 

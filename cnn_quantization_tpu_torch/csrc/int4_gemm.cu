@@ -31,9 +31,31 @@
 // at half a byte a code when packed, the residual at half a byte, the output
 // at its stored width), not by the int8 tensor-core rate.
 //
-// Design.  The block product is int8_mma.cuh's (128 x 64 tiles,
-// mma.sync.m16n8k32.s8; Hopper's tensor cores have no 4-bit integer type, so
-// nibbles become int8 before the product), through two additions:
+// Two routes, chosen by the operands (int4_matmul.int4_route decides and
+// passes `route`; this file checks the same condition and refuses route 1
+// where it cannot take the operands; route 0 takes every call, so it is also
+// taken where a caller asks for it to measure it beside route 1).  Hopper's tensor cores have no 4-bit integer type, so on both
+// nibbles become int8 before the product.
+//
+// Route 1, TMA + wgmma, where TMA can describe every operand (packed A, or
+// unpacked A with K % 16 == 0; all bases 16-byte aligned): the persistent
+// warp-specialised kernel of int8_wgmma.cuh.  Packed A arrives as one
+// 128-byte TMA box per packing group row and is unpacked in shared memory in
+// place (PackedA there): each packed byte is read once.  Where the residual
+// or the output is packed, a tile's 64 columns are 32 codes of a packing
+// group's low half and the 32 codes 128 further (two Bt boxes), so the two
+// nibbles of a byte meet in one thread of the wgmma accumulator and the
+// epilogue (Int4WgEpilogue) needs neither renumbered columns nor transposes;
+// byte outputs leave through shared memory and TMA stores, which overlap the
+// next tile's loads.  At the stage-1 shapes (K = 64) a tile is one stage and
+// the kernel streams A, the residual and the output.  What bounds it there is
+// the epilogue's issue rate: a true division for each code (__fdiv_rn; a
+// ReLU'd zero skips it, see code() below) and some 20 other instructions an
+// output, so tiles are narrow and three blocks share an SM.
+//
+// Route 0, mma.sync, for the rest (a K that is no multiple of 16, a
+// misaligned operand): int8_mma.cuh's block product (128 x 64 tiles,
+// mma.sync.m16n8k32.s8), through two additions:
 //
 //   * a loader that unpacks: the 16 codes at k (a multiple of 16, so never
 //     astride the two halves of a group) are the low (k % 256 < 128) or high
@@ -58,6 +80,7 @@
 // flips codes at ties, and on a +-7 grid a flipped code snowballs.
 
 #include "int8_mma.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -66,11 +89,7 @@ constexpr int kHalf = 128;   // bytes per group
 
 enum OutMode { kF32 = 0, kBF16 = 1, kInt8 = 2, kPacked = 3 };
 
-// four bytes' low or high nibbles, each sign extended to a byte
-__device__ __forceinline__ uint32_t nibbles_to_bytes(uint32_t w, bool high) {
-  const uint32_t x = (high ? (w >> 4) : w) & 0x0F0F0F0Fu;
-  return __vsub4(x ^ 0x08080808u, 0x08080808u);
-}
+using cnnq::wg::nibbles_to_bytes;
 
 struct Int4A {
   const int8_t* a;
@@ -305,6 +324,274 @@ int run(const Int4A& A, const Args& g) {
 
 bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
+// ------------------------------------------------- the TMA + wgmma route
+
+// The epilogue on wgmma's accumulator layout (int8_wgmma.cuh): a lane holds
+// rows rl and rl + 8 of its warpgroup's 64, and in slab j the columns
+// 8j + 2t and 8j + 2t + 1 (t = lane % 4).
+//   Ungrouped (BN = 64 or 128): tile column c is column n0 + c.
+//   Grouped (a residual or a packed output; the tile lies inside packing
+//   group g0 = n0 - n0 % 256): the Bt tile is two boxes of BN / 2 rows, codes
+//   j0 + i of the group's low half and j0 + 128 + i of its high half (j0 =
+//   n0 % 256 / 2), so slab j < BN / 16 holds the low nibbles of packed bytes
+//   b = j0 + 8j + 2t and b + 1 and slab j + BN / 16 their high nibbles: both
+//   nibbles of a byte lie in one thread, with no renumbering of the columns
+//   and no transposes.  The residual is read as those two bytes.
+// Values and codes are Int4Epilogue's value() and code(), unchanged; a value
+// of 0 (the ReLU's) takes code 0 without the division, which is what the
+// division gives for any scale > 0.  int8 and packed outputs are written as
+// 16-bit pairs into a staging buffer with the swizzle of the store map (boxes
+// of 64 rows x 32 or 64 bytes) and written out by TMA stores, clipped to
+// M and N, where the output rows are a multiple of 16 bytes; float outputs,
+// and bytes otherwise, are stored by the lanes.
+template <int MODE, bool GROUPED>
+struct Int4WgEpilogue {
+  using OutT = typename Int4Epilogue<MODE, GROUPED>::OutT;
+  static constexpr bool kSplitB = GROUPED;
+  static constexpr bool kBytes = MODE == kInt8 || MODE == kPacked;
+  Int4Epilogue<MODE, GROUPED> e;
+  int M;
+  int staged;  // byte output written through map_out
+
+  // bytes of a tile row of the output, and of one store box
+  template <int BN>
+  __host__ __device__ static constexpr int row_bytes() {
+    return MODE == kPacked ? BN / 2 : BN;
+  }
+  template <int BN>
+  __host__ __device__ static constexpr int box_bytes() {
+    return GROUPED ? BN / 2 : BN;
+  }
+  template <int BN>
+  __host__ __device__ static constexpr int staging_bytes() {
+    return kBytes ? 64 * row_bytes<BN>() : 0;
+  }
+
+  // grouped: the first Bt row of the tile's low (half 0) or high half
+  __device__ __forceinline__ static int b_row(int n0, int half) {
+    return (n0 & ~(kGroup - 1)) + half * kHalf + ((n0 & (kGroup - 1)) >> 1);
+  }
+
+  // the staging offset of byte `col` of tile row r: 16-byte chunk c of a box
+  // row at c ^ ((r / 2) % 4) (64-byte swizzle) or c ^ ((r / 4) % 2) (32-byte)
+  template <int BN>
+  __device__ __forceinline__ static int at(int r, int col) {
+    constexpr int bb = box_bytes<BN>();
+    static_assert(bb == 64 || bb == 32, "store boxes of 64 or 32 bytes");
+    const int box = col / bb, in = col % bb, chunk = in >> 4;
+    const int swz = bb == 64 ? chunk ^ ((r >> 1) & 3) : chunk ^ ((r >> 2) & 1);
+    return box * 64 * bb + r * bb + (swz << 4) + (in & 15);
+  }
+
+  __device__ __forceinline__ int code(float v, float os, float q) const {
+    return v == 0.f && os > 0.f ? 0 : e.code(v, os, q);
+  }
+
+  __device__ __forceinline__ uint32_t nibble_pair(float lo, float hi, float os) const {
+    return (static_cast<uint32_t>(code(lo, os, 7.f)) & 0xFu) |
+           ((static_cast<uint32_t>(code(hi, os, 7.f)) & 0xFu) << 4);
+  }
+
+  __device__ __forceinline__ uint16_t byte_pair(float v0, float v1, float os) const {
+    return static_cast<uint16_t>((code(v0, os, e.qmax) & 0xFF) | ((code(v1, os, e.qmax) & 0xFF) << 8));
+  }
+
+  template <int BN>
+  __device__ __forceinline__ void store(const int (&acc)[BN / 2], const CUtensorMap* map_out,
+                                        int64_t row0, int n0, uint8_t* buf, int g) const {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int rl = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+    const bool leader = (threadIdx.x & 127) == 0;
+    const bool stage_out = kBytes && staged != 0;
+    if (stage_out) {
+      // the previous tile's stores must have read the buffer
+      if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      cnnq::wg::warpgroup_sync(g);
+    }
+    const float os = kBytes ? *e.out_scale : 1.f;
+    const int N = e.N;
+    if constexpr (!GROUPED) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = n0 + 8 * j + 2 * t;
+        const bool in0 = c < N, in1 = c + 1 < N;
+        const float a0 = in0 ? e.alpha[c] : 0.f, a1 = in1 ? e.alpha[c + 1] : 0.f;
+        const float b0 = in0 && e.beta != nullptr ? e.beta[c] : 0.f;
+        const float b1 = in1 && e.beta != nullptr ? e.beta[c + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rl + 8 * h;
+          const int64_t row = row0 + r;
+          const float v0 = e.value(acc[4 * j + 2 * h], a0, b0, false, 0, 0.f);
+          const float v1 = e.value(acc[4 * j + 2 * h + 1], a1, b1, false, 0, 0.f);
+          if constexpr (MODE == kInt8) {
+            if (stage_out) {
+              *reinterpret_cast<uint16_t*>(buf + at<BN>(r, 8 * j + 2 * t)) = byte_pair(v0, v1, os);
+            } else if (row < M && in0) {
+              store_pair(e.out + row * N + c, code(v0, os, e.qmax), code(v1, os, e.qmax), in1);
+            }
+          } else if (row < M && in0) {
+            cnnq::store_pair(e.out + row * N + c, v0, v1, in1);
+          }
+        }
+      }
+    } else {
+      constexpr int kSlabs = BN / 16;  // slabs of each half
+      const bool has_res = e.res != nullptr;
+      const float rs = has_res ? *e.res_scale : 0.f;
+      const int64_t half_n = N >> 1;
+      const int g0 = n0 & ~(kGroup - 1), j0 = (n0 & (kGroup - 1)) >> 1;
+#pragma unroll
+      for (int j = 0; j < kSlabs; ++j) {
+        const int tb = 8 * j + 2 * t;   // byte of the tile's row
+        const int b = j0 + tb;          // byte of the group's row
+        const int lo = g0 + b, hi = lo + kHalf;
+        const float alo0 = e.alpha[lo], alo1 = e.alpha[lo + 1];
+        const float ahi0 = e.alpha[hi], ahi1 = e.alpha[hi + 1];
+        const bool bt = e.beta != nullptr;
+        const float blo0 = bt ? e.beta[lo] : 0.f, blo1 = bt ? e.beta[lo + 1] : 0.f;
+        const float bhi0 = bt ? e.beta[hi] : 0.f, bhi1 = bt ? e.beta[hi + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rl + 8 * h;
+          const int64_t row = row0 + r;
+          const bool ok = row < M;
+          uint32_t rw = 0;  // residual bytes b (low 8 bits) and b + 1
+          if (has_res && ok) {
+            rw = *reinterpret_cast<const uint16_t*>(e.res + row * half_n + (g0 >> 1) + b);
+          }
+          const int rlo0 = static_cast<int8_t>((rw << 4) & 0xFFu) >> 4;
+          const int rhi0 = static_cast<int8_t>(rw & 0xFFu) >> 4;
+          const int rlo1 = static_cast<int8_t>((rw >> 4) & 0xF0u) >> 4;
+          const int rhi1 = static_cast<int8_t>((rw >> 8) & 0xFFu) >> 4;
+          const int* a_lo = &acc[4 * j + 2 * h];
+          const int* a_hi = &acc[4 * (j + kSlabs) + 2 * h];
+          const float vlo0 = e.value(a_lo[0], alo0, blo0, has_res, rlo0, rs);
+          const float vlo1 = e.value(a_lo[1], alo1, blo1, has_res, rlo1, rs);
+          const float vhi0 = e.value(a_hi[0], ahi0, bhi0, has_res, rhi0, rs);
+          const float vhi1 = e.value(a_hi[1], ahi1, bhi1, has_res, rhi1, rs);
+          if constexpr (MODE == kPacked) {
+            const uint16_t word =
+                static_cast<uint16_t>(nibble_pair(vlo0, vhi0, os) | (nibble_pair(vlo1, vhi1, os) << 8));
+            if (stage_out) {
+              *reinterpret_cast<uint16_t*>(buf + at<BN>(r, tb)) = word;
+            } else if (ok) {
+              *reinterpret_cast<uint16_t*>(e.out + row * half_n + (g0 >> 1) + b) = word;
+            }
+          } else if constexpr (MODE == kInt8) {
+            const uint16_t wlo = byte_pair(vlo0, vlo1, os), whi = byte_pair(vhi0, vhi1, os);
+            if (stage_out) {
+              *reinterpret_cast<uint16_t*>(buf + at<BN>(r, tb)) = wlo;
+              *reinterpret_cast<uint16_t*>(buf + at<BN>(r, BN / 2 + tb)) = whi;
+            } else if (ok) {
+              *reinterpret_cast<uint16_t*>(e.out + row * N + lo) = wlo;
+              *reinterpret_cast<uint16_t*>(e.out + row * N + hi) = whi;
+            }
+          } else if (ok) {
+            cnnq::store_pair(e.out + row * N + lo, vlo0, vlo1, true);
+            cnnq::store_pair(e.out + row * N + hi, vhi0, vhi1, true);
+          }
+        }
+      }
+    }
+    if (stage_out) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      cnnq::wg::warpgroup_sync(g);
+      if (leader) {
+        constexpr int bb = box_bytes<BN>();
+        const int g0 = n0 & ~(kGroup - 1), j0 = (n0 & (kGroup - 1)) >> 1;
+#pragma unroll
+        for (int box = 0; box < row_bytes<BN>() / bb; ++box) {
+          // the box's first output byte: packed, the group's bytes from j0;
+          // int8 grouped, the low or the high half's codes from j0
+          const int col = !GROUPED ? n0 + box * bb
+                          : MODE == kPacked ? (g0 >> 1) + j0
+                                            : g0 + box * kHalf + j0;
+          cnnq::wg::tma_store_2d(map_out, cnnq::wg::smem_u32(buf + box * 64 * bb), col,
+                                 static_cast<int>(row0));
+        }
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+  }
+};
+
+// The route's tiles are 128 x 64 in every mode, three blocks an SM: the
+// epilogue (a true division for each int8 or packed code) bounds every
+// serving shape, and 64 columns keep a lane's sums at 32 registers, so 24
+// consumer warps an SM share the card's issue slots: tiles of 128 and 256
+// columns at one or two blocks an SM ran slower on the H100 (PERF.md §6).
+// Packed A fills the stages in pairs, so the count at 128-byte boxes is
+// even.
+constexpr int kInt4BN = 64;
+template <int BK>
+struct Int4Ring;
+template <>
+struct Int4Ring<128> : cnnq::wg::Ring<kInt4BN, 2, 3, 128> {};
+template <>
+struct Int4Ring<64> : cnnq::wg::Ring<kInt4BN, 4, 3, 64> {};
+
+// What the TMA + wgmma route takes: packed A with K % 256 == 0 (always, see
+// below) or unpacked A with K % 16 == 0, every operand 16-byte aligned.
+// int4_matmul.int4_route is the same test in Python.
+bool wgmma_describable(const void* a, const void* bt, const void* residual, const void* out, int64_t K,
+                       bool a_packed) {
+  using cnnq::wg::aligned16;
+  return (a_packed ? K % kGroup == 0 : K % 16 == 0) && aligned16(a) && aligned16(bt) &&
+         (residual == nullptr || aligned16(residual)) && aligned16(out);
+}
+
+template <int MODE, bool GROUPED, int BK, typename A>
+int run_wgmma(const void* a, const Args& g) {
+  constexpr int BN = kInt4BN;
+  using Epi = Int4WgEpilogue<MODE, GROUPED>;
+  using cnnq::wg::make_map;
+  constexpr CUtensorMapDataType kU8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  Epi epi{{static_cast<typename Epi::OutT*>(g.out), static_cast<const float*>(g.alpha),
+           static_cast<const float*>(g.beta), static_cast<const int8_t*>(g.res),
+           static_cast<const float*>(g.res_scale), static_cast<const float*>(g.out_scale), g.qmax,
+           static_cast<int>(g.N), g.relu},
+          static_cast<int>(g.M),
+          0};
+  CUtensorMap map_a, map_b, map_out = {};
+  bool ok = A::kPacked ? make_map(&map_a, kU8, 1, a, g.M, g.K / 2, cnnq::wg::kBM)
+                       : make_map(&map_a, kU8, 1, a, g.M, g.K, cnnq::wg::kBM, BK);
+  ok = ok && make_map(&map_b, kU8, 1, g.bt, g.N, g.K, GROUPED ? BN / 2 : BN, BK);
+  if constexpr (Epi::kBytes) {
+    const int64_t cols = MODE == kPacked ? g.N / 2 : g.N;
+    epi.staged = cols % 16 == 0 && cnnq::wg::aligned16(g.out);
+    if (ok && epi.staged != 0) {
+      ok = make_map(&map_out, kU8, 1, g.out, g.M, cols, 64, Epi::template box_bytes<BN>());
+    }
+  }
+  if (!ok) return -1;
+  return cnnq::wg::launch<Int4Ring<BK>>(map_a, map_b, map_out, A{}, epi, g.M, g.N, g.K, g.stream);
+}
+
+// packed A: 128-byte boxes; unpacked A: 64-byte boxes for a K of at most 64
+template <int MODE, bool GROUPED>
+int run_wgmma_a(const void* a, bool a_packed, const Args& g) {
+  if (a_packed) return run_wgmma<MODE, GROUPED, 128, cnnq::wg::PackedA>(a, g);
+  if (g.K <= 64) return run_wgmma<MODE, GROUPED, 64, cnnq::wg::DenseA>(a, g);
+  return run_wgmma<MODE, GROUPED, 128, cnnq::wg::DenseA>(a, g);
+}
+
+int run_wgmma_mode(const void* a, bool a_packed, int out_mode, bool grouped, const Args& g) {
+  if (grouped) {
+    switch (out_mode) {
+      case kF32: return run_wgmma_a<kF32, true>(a, a_packed, g);
+      case kBF16: return run_wgmma_a<kBF16, true>(a, a_packed, g);
+      case kInt8: return run_wgmma_a<kInt8, true>(a, a_packed, g);
+      default: return run_wgmma_a<kPacked, true>(a, a_packed, g);
+    }
+  }
+  switch (out_mode) {
+    case kF32: return run_wgmma_a<kF32, false>(a, a_packed, g);
+    case kBF16: return run_wgmma_a<kBF16, false>(a, a_packed, g);
+    default: return run_wgmma_a<kInt8, false>(a, a_packed, g);
+  }
+}
+
 }  // namespace
 
 // a: [M, K] int8 codes, or [M, K/2] packed bytes when a_packed (K % 256 == 0).
@@ -312,13 +599,14 @@ bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p)
 // clipped to +-out_qmax, 3 = packed codes clipped to +-7 ([M, N/2] bytes).
 // beta, residual ([M, N/2] packed bytes) may be null; a residual or a packed
 // output needs N % 256 == 0.  res_scale and out_scale point to one float32
-// each in device memory.  Returns cudaGetLastError() after the launch, or -1
-// for arguments the kernel does not take; the caller raises on any non-zero
-// code.
+// each in device memory.  route: 1 = TMA + wgmma, only where
+// wgmma_describable; 0 = mma.sync, any operands.  Returns
+// cudaGetLastError() after the launch, or -1 for arguments the kernel does
+// not take; the caller raises on any non-zero code.
 extern "C" int cnnq_int4_gemm(const void* a, const void* bt, void* out, const void* alpha,
                               const void* beta, const void* residual, const void* res_scale,
                               const void* out_scale, int64_t M, int64_t N, int64_t K, int a_packed,
-                              int relu, int out_mode, float out_qmax, void* stream) {
+                              int relu, int out_mode, float out_qmax, int route, void* stream) {
   if (M < 0 || N < 0 || K <= 0 || out_mode < kF32 || out_mode > kPacked) return -1;
   if (N > 2147483647LL || K > 2147483647LL - 64) return -1;
   const bool grouped = residual != nullptr || out_mode == kPacked;
@@ -327,7 +615,11 @@ extern "C" int cnnq_int4_gemm(const void* a, const void* bt, void* out, const vo
   if (residual != nullptr && (res_scale == nullptr || !aligned(residual, 4))) return -1;
   if ((out_mode == kInt8 || out_mode == kPacked) && out_scale == nullptr) return -1;
   if (out_mode == kPacked && !aligned(out, 4)) return -1;
+  if (route != 0 && (route != 1 || !wgmma_describable(a, bt, residual, out, K, a_packed != 0))) {
+    return -1;
+  }
   if (M == 0 || N == 0) return 0;
+  (void)cudaGetLastError();  // what this call returns is its own launch's error
   const int8_t* ap = static_cast<const int8_t*>(a);
   const Int4A A{ap,
                 M,
@@ -338,6 +630,12 @@ extern "C" int cnnq_int4_gemm(const void* a, const void* bt, void* out, const vo
   const Args g{bt, alpha, beta, residual, res_scale, out_scale, out,
                M,  N,     K,    out_qmax, relu,      static_cast<cudaStream_t>(stream)};
   int rc;
+  if (route == 1) {
+    if (M > 2147483647LL - cnnq::wg::kBM) return -1;
+    rc = run_wgmma_mode(a, a_packed != 0, out_mode, grouped, g);
+    if (rc != 0) return rc;
+    return static_cast<int>(cudaGetLastError());
+  }
   switch (out_mode * 2 + (grouped ? 1 : 0)) {
     case kF32 * 2: rc = run<kF32, false>(A, g); break;
     case kF32 * 2 + 1: rc = run<kF32, true>(A, g); break;

@@ -15,8 +15,10 @@
 // Positions outside the image contribute 0: zero padding in the integer
 // domain, exact at zero point 0.
 //
-// Two routes, chosen by shape (int_conv.conv_route decides and passes
-// `route`; this file checks the same condition and refuses a mismatch):
+// Three routes, chosen by shape (int_conv.conv_route decides and passes
+// `route`; this file checks the same condition and refuses a route that
+// cannot take the shape).  Route 0 computes every shape, so it is also taken
+// where a caller asks for it to measure it beside the route the shape takes:
 //
 // Route 1, depthwise (groups == C == O, any KH x KW, stride and padding): a
 // direct kernel without tensor cores.  A thread owns 16 consecutive channels
@@ -33,7 +35,21 @@
 // 12 instructions for 16 MACs.  Memory bounds what is left: the float32
 // output is four times the int8 input, so the stores are what to get right.
 //
-// Route 0, every other conv: per group the product of int8_mma.cuh with M =
+// Route 2, TMA im2col + wgmma (one group, C a multiple of 64, aligned bases,
+// im2col_describable in int8_wgmma.cuh: every 3x3 conv and strided 1x1
+// downsample of the ResNet family): the persistent warp-specialised kernel of
+// int8_wgmma.cuh with the Im2colA loader.  The left operand is never written
+// to memory: for each filter tap and each 128-byte (64-byte at C = 64) slice
+// of C, one TMA load in im2col mode fills a tile of 128 consecutive output
+// pixels, crossing image rows and images; TMA's zero fill is the padding
+// (exact at zero point 0) and its traversal stride the conv's stride.  The
+// K order (kh, kw, c) is the weight's, so the weight is the plain 2-D Bt map
+// of the GEMM route, and the output [N*Ho*Wo, O] is the GEMM route's output
+// with the same epilogue and TMA stores.  Tiles of 128 x 64 for O <= 64,
+// else 128 x 128.
+//
+// Route 0, every other conv (the space-to-depth stem with Cg = 12, grouped
+// convolutions, depthwise with a multiplier): the product of int8_mma.cuh with M =
 // N*Ho*Wo rows, O / groups columns and K = KH*KW*Cg: the weight already is
 // the transposed right operand with K running (kh, kw, c) contiguously, and
 // the left operand
@@ -50,6 +66,7 @@
 // memory rate bounds it, from C = 256 on the int8 tensor-core rate.
 
 #include "int8_mma.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -278,8 +295,9 @@ int launch_depthwise(const void* x, const void* w, void* out, const void* alpha,
 
 }  // namespace
 
-// out_dtype: 0 = float32, 1 = bfloat16.  bias may be null.  route: 1 =
-// direct depthwise, 0 = implicit GEMM; it must be the route the shape takes.
+// out_dtype: 0 = float32, 1 = bfloat16.  bias may be null.  route: 2 = TMA
+// im2col + wgmma, 1 = direct depthwise, 0 = implicit GEMM on mma.sync; 1
+// and 2 must be the route the shape takes, 0 takes any shape.
 // Returns cudaGetLastError() after the launch, or -1 for arguments the kernel
 // does not take; the caller raises on any non-zero code.
 extern "C" int cnnq_int8_conv(const void* x, const void* w, void* out, const void* alpha,
@@ -291,17 +309,31 @@ extern "C" int cnnq_int8_conv(const void* x, const void* w, void* out, const voi
       out_dtype > 1) {
     return -1;
   }
-  if (route != ((groups == c && c == o) ? 1 : 0)) return -1;
+  const int want = (groups == c && c == o)
+                       ? 1
+                       : cnnq::wg::im2col_describable(x, w, c, groups, kh, kw, sh, sw, ph, pw) ? 2 : 0;
+  if (route != want && route != 0) return -1;
   const int ho = (h + 2 * ph - kh) / sh + 1, wo = (wd + 2 * pw - kw) / sw + 1;
   if (h + 2 * ph < kh || wd + 2 * pw < kw) return -1;
   const int64_t M = static_cast<int64_t>(n) * ho * wo;
   if (M == 0) return 0;
+  (void)cudaGetLastError();  // what this call returns is its own launch's error
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     return out_dtype == 0 ? launch_depthwise<float>(x, w, out, alpha, bias, M, h, wd, c, kh, kw, sh,
                                                     sw, ph, pw, ho, wo, relu, s)
                           : launch_depthwise<__nv_bfloat16>(x, w, out, alpha, bias, M, h, wd, c, kh,
                                                             kw, sh, sw, ph, pw, ho, wo, relu, s);
+  }
+  if (route == 2) {
+    const int rc = out_dtype == 0
+                       ? cnnq::wg::launch_int8_conv_wgmma<float>(x, w, out, alpha, bias, n, h, wd, c, o,
+                                                                 kh, kw, sh, sw, ph, pw, ho, wo, relu, s)
+                       : cnnq::wg::launch_int8_conv_wgmma<__nv_bfloat16>(
+                             x, w, out, alpha, bias, n, h, wd, c, o, kh, kw, sh, sw, ph, pw, ho, wo,
+                             relu, s);
+    if (rc != 0) return rc;
+    return static_cast<int>(cudaGetLastError());
   }
   const int cg = c / groups;
   const int64_t K = static_cast<int64_t>(kh) * kw * cg;

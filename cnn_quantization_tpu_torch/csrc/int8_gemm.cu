@@ -65,6 +65,7 @@ extern "C" int cnnq_int8_gemm(const void* a, const void* bt, void* out, const vo
   if (route != (cnnq::wg::tma_describable(a, bt, K) ? 1 : 0)) return -1;
   if (M == 0 || N == 0) return 0;
   if (K > 2147483647LL - 64) return -1;
+  (void)cudaGetLastError();  // what this call returns is its own launch's error
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
   if (route == 1) {

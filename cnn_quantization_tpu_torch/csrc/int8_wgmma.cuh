@@ -1,33 +1,56 @@
-// TMA + wgmma int8 matrix product with the dequant epilogue for Hopper
-// (sm_90a): the route of int8_gemm.cu for every shape that the Tensor Memory
-// Accelerator can describe (K % 16 == 0, both operands 16-byte aligned).
+// TMA + wgmma int8 matrix products for Hopper (sm_90a): one persistent,
+// warp-specialised kernel template shared by three routes.
 //
-//   out[m, n] = cast(relu?(float(sum_k A[m, k] * Bt[n, k]) * alpha[n] + beta[n]))
+//   int8_gemm.cu, route 1:   out[m, n] = dequant(sum_k A[m, k] * Bt[n, k])
+//   int8_conv.cu, route 2:   the same with A the im2col matrix of an NHWC
+//                            image, never written to memory (TMA im2col mode)
+//   int4_gemm.cu, route 1:   A may hold two int4 codes a byte; the epilogue
+//                            adds a packed residual and requantizes
 //
-// A is [M, K] int8 row-major, Bt is [N, K] int8 row-major: both K-major, the
-// only layout wgmma takes for 8-bit operands, and the layout in which the
-// serving path holds them (a channels_last activation, a stored weight).
+// A is [M, K] int8 as the loader presents it, Bt is [N, K] int8 row-major:
+// both K-major, the only layout wgmma takes for 8-bit operands, and the
+// layout in which the serving path holds them (a channels_last activation, a
+// stored weight; a conv weight [O, KH, KW, C] is Bt with K running (kh, kw, c)).
 //
 // Design.  A persistent grid of blocks, each of two consumer warpgroups and
 // one producer warp, walks 128 x BN output tiles (tile t, t + gridDim.x, ...).
 // The producer's one thread keeps a ring of kStages shared-memory stages full:
-// per stage one TMA load of the A tile (128 rows x 128 bytes of K) and one of
-// the Bt tile (BN rows x 128 bytes), 2-D tensor maps with SWIZZLE_128B, the
-// completion counted in bytes on the stage's `full` mbarrier.  TMA's
-// out-of-bounds fill writes zeros, so ragged M, N and K need no masking in
-// the main loop: a zero byte adds nothing to the exact int32 sum.  Each
-// consumer warpgroup owns 64 rows of the tile and runs four
-// wgmma.mma_async.m64nBNk32.s32.s8.s8 per stage (32 bytes of K each, the
-// descriptor's start address advanced by 32 bytes inside the 128-byte swizzle
-// row), its int32 sums in registers; after the stage's wgmma group completes,
-// one lane of each consumer warp arrives on the stage's `empty` mbarrier and
-// the producer refills it.  The ring runs on across tiles, so the producer
-// loads the next tile while the consumers run this tile's epilogue.
+// per stage one TMA load of the A tile (128 rows x BK bytes of K) and one of
+// the Bt tile (BN rows x BK bytes), with the swizzle of a BK-byte row (BK =
+// 128 or 64), the completion counted in bytes on the stage's `full`
+// mbarrier.  TMA's out-of-bounds fill writes zeros, so ragged M, N and K need
+// no masking in the main loop: a zero byte adds nothing to the exact int32
+// sum.  Each consumer warpgroup owns 64 rows of the tile and runs BK / 32
+// wgmma.mma_async.m64nBNk32.s32.s8.s8 per stage (the descriptor's start
+// address advanced by 32 bytes inside the swizzle row), its int32 sums in
+// registers; after the stage's wgmma group completes, one lane of each
+// consumer warp arrives on the stage's `empty` mbarrier and the producer
+// refills it.  The ring runs on across tiles, so the producer loads the next
+// tile while the consumers run this tile's epilogue.
 //
-// BN (64, 128 or 256) is picked per shape at launch (see pick_bn): 64 for
-// N <= 64, 256 where K is long enough for the tensor-core rate to bound, 128
-// for the rest.  The two narrow widths run two blocks an SM (3 and 2 stages
-// beside their staging buffers), 256 one block with 4 stages.
+// The A loaders (how a K block of A reaches shared memory):
+//   DenseA    a 2-D box of the row-major [M, K] matrix;
+//   Im2colA   TMA's im2col mode on the 4-D [N, H, W, C] image: one load
+//             fills 128 consecutive output pixels (across image rows and
+//             images) with BK channels of one filter tap; padding is the
+//             map's corners and TMA's zero fill (exact at zero point 0), the
+//             stride the map's traversal stride;
+//   PackedA   [M, K/2] bytes, two int4 codes a byte in the group-local
+//             split-half layout (int4_gemm.cu): byte j of a 128-byte group
+//             row holds code j of one 128-code K block in its low nibble and
+//             code j of the next in its high nibble.  So one 128-byte box
+//             with the 128-byte swizzle unpacks byte for byte into two K
+//             blocks with the same swizzle: the producer loads it into the
+//             second stage of a pair, each consumer warpgroup sign-extends
+//             its 64 rows in place (low nibbles to the first stage, high to
+//             the second), fences the generic-proxy writes for the async
+//             proxy and runs wgmma.  Every packed byte is read once.
+//
+// BN (64, 128 or 256) and the ring are picked per route and shape at launch.
+// The launch set-up that does not depend on the pointers (the card's SMs,
+// the kernel's shared-memory attribute, its occupancy) is done once per
+// kernel instance and device; the tensor maps hold the pointers and are
+// encoded per call.
 //
 // Accumulator layout of wgmma m64nN with 32-bit sums (not mma.sync's 16 x 8
 // tile per warp): warp w of the warpgroup holds rows 16w .. 16w + 15; lane l
@@ -35,20 +58,21 @@
 // 8j + 2(l%4)), d[4j + 1] one column right, d[4j + 2] and d[4j + 3] the same
 // two columns eight rows down.
 //
-// Epilogue.  dequant (int8_mma.cuh) per element, regrouped into 16-byte
-// chunks: for float32 the two lanes of a pair swap one row's two values by a
-// shuffle, so each lane holds four consecutive columns of one row; for
-// bfloat16 the four lanes of a quad transpose their four 32-bit words (two
-// slabs x two rows), so each lane holds eight consecutive columns of one row.
-// Where each output row is a multiple of 16 bytes and BN <= 128 (the
-// memory-bound shapes, which write far more than they read), the chunks go to
-// a staging buffer in shared memory and TMA stores write them out, clipped to
-// M and N: the write-heavy shapes ran at a fraction of the memory rate with
-// stores from the threads.  Otherwise (BN = 256, or rows that are not a
-// multiple of 16 bytes) each lane stores its chunks itself, element by
-// element beyond N, and rows beyond M are not stored.
+// The dequant epilogue (DequantOut, for the GEMM and the conv): dequant
+// (int8_mma.cuh) per element, regrouped into 16-byte chunks: for float32 the
+// two lanes of a pair swap one row's two values by a shuffle, so each lane
+// holds four consecutive columns of one row; for bfloat16 the four lanes of a
+// quad transpose their four 32-bit words (two slabs x two rows), so each lane
+// holds eight consecutive columns of one row.  Where each output row is a
+// multiple of 16 bytes and BN <= 128 (the memory-bound shapes, which write far
+// more than they read), the chunks go to a staging buffer in shared memory
+// and TMA stores write them out, clipped to M and N: the write-heavy shapes
+// ran at a fraction of the memory rate with stores from the threads.
+// Otherwise (BN = 256, or rows that are not a multiple of 16 bytes) each lane
+// stores its chunks itself, element by element beyond N, and rows beyond M are
+// not stored.
 //
-// Numerics as the mma.sync route: exact int32 sums, __fmul_rn then __fadd_rn
+// Numerics as the mma.sync routes: exact int32 sums, __fmul_rn then __fadd_rn
 // then fmaxf then the cast, built with --fmad=false.
 
 #pragma once
@@ -68,22 +92,25 @@ constexpr int kBK = 128;                       // bytes of K per stage: one 128-
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
 
-// stages of the ring and blocks an SM for each tile width; the narrow tiles
+constexpr int kMaxDevices = 64;
+
+// A ring: the tile width, its stages, the blocks an SM it is built for and
+// the bytes of K a stage holds (128, or 64 with the 64-byte swizzle)
+template <int BN, int STAGES, int MIN_BLOCKS, int BK = kBK>
+struct Ring {
+  static constexpr int kBN = BN, kStages = STAGES, kMinBlocks = MIN_BLOCKS, kBK = BK;
+};
+
+// the int8 GEMM's and the conv's rings for each tile width; the narrow tiles
 // leave room for two blocks an SM beside their staging buffers
 template <int BN>
 struct Tile;
 template <>
-struct Tile<64> {
-  static constexpr int kStages = 3, kMinBlocks = 2;
-};
+struct Tile<64> : Ring<64, 3, 2> {};
 template <>
-struct Tile<128> {
-  static constexpr int kStages = 2, kMinBlocks = 2;
-};
+struct Tile<128> : Ring<128, 2, 2> {};
 template <>
-struct Tile<256> {
-  static constexpr int kStages = 4, kMinBlocks = 1;
-};
+struct Tile<256> : Ring<256, 4, 1> {};
 
 // The output staging of one consumer warpgroup (BN <= 128, rows a multiple
 // of 16 bytes): its 64 rows of the tile in passes of up to two TMA store
@@ -99,12 +126,12 @@ struct Staging {
   static constexpr int kBytes = kOn ? kBoxes * 64 * 128 : 0;
 };
 
-template <int BN, typename OutT>
+template <typename R, typename Epi>
 constexpr size_t smem_bytes() {
   // the stages, the two warpgroups' staging buffers, two mbarriers a stage,
   // and slack to align the stages to the 1024-byte swizzle atom
-  return static_cast<size_t>(Tile<BN>::kStages) * (kBM + BN) * kBK +
-         2 * Staging<BN, OutT>::kBytes + 16 * Tile<BN>::kStages + 1024;
+  return static_cast<size_t>(R::kStages) * (kBM + R::kBN) * R::kBK +
+         2 * static_cast<size_t>(Epi::template staging_bytes<R::kBN>()) + 16 * R::kStages + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -124,9 +151,12 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// spin until the phase of parity `parity` has completed
+// spin until the phase of parity `parity` has completed.  A wait of more
+// than 2^34 cycles (seconds) can only be a deadlock: it traps, so the launch
+// fails with an error instead of holding the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
+  const long long start = clock64();
   do {
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -134,6 +164,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
+    if (!done && clock64() - start > (1LL << 34)) asm volatile("trap;");
   } while (!done);
 }
 
@@ -147,13 +178,28 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// wgmma descriptor of a K-major tile written by TMA with SWIZZLE_128B: rows
-// of 128 bytes, 8-row (1024-byte) swizzle atoms stacked along M or N
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  uint64_t d = (addr & 0x3FFFFu) >> 4;         // start address, 16-byte units
-  d |= static_cast<uint64_t>(1) << 16;          // leading byte offset: unused for this layout
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;  // stride byte offset: the next 8-row atom
-  d |= static_cast<uint64_t>(1) << 62;          // layout: 128-byte swizzle
+// one im2col box of a 4-D [N, H, W, C] map: 128 output pixels from the one
+// at input position (n, h, w) on (the map's traversal stride apart), channels
+// c .. c + BK - 1 of filter tap (kh, kw) = the offsets
+__device__ __forceinline__ void tma_load_im2col_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                                   int c, int w, int h, int n, uint16_t off_w,
+                                                   uint16_t off_h) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n), "h"(off_w),
+      "h"(off_h)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile written by TMA with the swizzle of a
+// bk-byte row (bk = 128: SWIZZLE_128B, 8-row atoms of 1024 bytes; bk = 64:
+// SWIZZLE_64B, 8-row atoms of 512 bytes), atoms stacked along M or N
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int bk) {
+  uint64_t d = (addr & 0x3FFFFu) >> 4;                         // start address, 16-byte units
+  d |= static_cast<uint64_t>(1) << 16;                          // leading byte offset: unused here
+  d |= static_cast<uint64_t>((8 * bk) >> 4) << 32;              // stride byte offset: the next atom
+  d |= static_cast<uint64_t>(bk == 128 ? 1 : 2) << 62;          // layout: 128- or 64-byte swizzle
   return d;
 }
 
@@ -366,27 +412,128 @@ __device__ __forceinline__ void store_tile_staged(const int (&acc)[BN / 2], cons
   }
 }
 
-template <int BN, typename OutT>
-__global__ void __launch_bounds__(kThreads, Tile<BN>::kMinBlocks)
-int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-                  const __grid_constant__ CUtensorMap map_out, OutT* __restrict__ out,
-                  const float* __restrict__ alpha, const float* __restrict__ beta, int M, int N,
-                  int K, int relu, int vec_out) {
-  constexpr int kStages = Tile<BN>::kStages;
-  constexpr uint32_t kABytes = kBM * kBK, kStageBytes = (kBM + BN) * kBK;
+// ------------------------------------------------------------ the A loaders
+
+// A as a row-major [M, K] int8 matrix: one 2-D box of 128 rows x bk bytes
+struct DenseA {
+  static constexpr bool kPacked = false;
+  struct At {
+    int m0;
+  };
+  __device__ __forceinline__ At at(int m0) const { return At{m0}; }
+  __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* map, uint32_t bar, const At& t,
+                                       int kb, int bk) const {
+    tma_load_2d(dst, map, bar, kb * bk, t.m0);
+  }
+};
+
+// A as [M, K/2] packed bytes (K % 256 == 0, bk = 128): the box of K blocks kb
+// and kb + 1 (kb even) is the group row's 128 bytes
+struct PackedA {
+  static constexpr bool kPacked = true;
+  struct At {
+    int m0;
+  };
+  __device__ __forceinline__ At at(int m0) const { return At{m0}; }
+  __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* map, uint32_t bar, const At& t,
+                                       int kb, int /*bk*/) const {
+    tma_load_2d(dst, map, bar, (kb >> 1) * kBK, t.m0);
+  }
+};
+
+// A as the im2col matrix of an NHWC image, K running (kh, kw, c) as the
+// weight does; C % bk == 0, so a K block lies inside one filter tap
+struct Im2colA {
+  static constexpr bool kPacked = false;
+  int Ho, Wo, C, KW, sh, sw, ph, pw;
+  struct At {
+    int n, h, w;  // input position of filter tap (0, 0) of output pixel m0
+  };
+  __device__ __forceinline__ At at(int m0) const {
+    const int wo = m0 % Wo, t = m0 / Wo;
+    return At{t / Ho, (t % Ho) * sh - ph, wo * sw - pw};
+  }
+  __device__ __forceinline__ void load(uint32_t dst, const CUtensorMap* map, uint32_t bar, const At& t,
+                                       int kb, int bk) const {
+    const int k = kb * bk, tap = k / C, kh = tap / KW;
+    tma_load_im2col_4d(dst, map, bar, k - tap * C, t.w, t.h, t.n, static_cast<uint16_t>(tap - kh * KW),
+                       static_cast<uint16_t>(kh));
+  }
+};
+
+// ------------------------------------------------------ the dequant epilogue
+
+// out[m, n] = cast(relu?(float(acc) * alpha[n] + beta[n])), [M, N] row-major
+template <typename OutT>
+struct DequantOut {
+  static constexpr bool kSplitB = false;  // Bt's BN rows in one box from n0
+  OutT* out;
+  const float* alpha;
+  const float* beta;  // may be null
+  int M, N;
+  int relu;
+  int vec;  // rows a multiple of 16 bytes and out 16-byte aligned: map_out is set up
+
+  template <int BN>
+  __host__ __device__ static constexpr int staging_bytes() {
+    return Staging<BN, OutT>::kBytes;
+  }
+
+  template <int BN>
+  __device__ __forceinline__ void store(const int (&acc)[BN / 2], const CUtensorMap* map_out,
+                                        int64_t row0, int n0, uint8_t* buf, int g) const {
+    if constexpr (Staging<BN, OutT>::kOn) {
+      if (vec != 0) {
+        store_tile_staged<BN, OutT>(acc, map_out, alpha, beta, row0, n0, N, relu != 0, buf, g);
+        return;
+      }
+    }
+    store_tile<BN, OutT>(acc, out, alpha, beta, row0, n0, M, N, relu != 0, vec != 0);
+  }
+};
+
+// four bytes' low or high nibbles, each sign extended to a byte
+__device__ __forceinline__ uint32_t nibbles_to_bytes(uint32_t w, bool high) {
+  const uint32_t x = (high ? (w >> 4) : w) & 0x0F0F0F0Fu;
+  return __vsub4(x ^ 0x08080808u, 0x08080808u);
+}
+
+__device__ __forceinline__ uint4 unpack_chunk(uint4 w, bool high) {
+  return make_uint4(nibbles_to_bytes(w.x, high), nibbles_to_bytes(w.y, high),
+                    nibbles_to_bytes(w.z, high), nibbles_to_bytes(w.w, high));
+}
+
+// ---------------------------------------------------------------- the kernel
+
+// R: the Ring; A: the A loader; Epi: the epilogue (staging_bytes<BN>() a
+// warpgroup, store<BN>(acc, map_out, row0, n0, staging, g), called by every
+// thread of the warpgroup; with kSplitB, the Bt tile is two boxes of BN / 2
+// rows from b_row(n0, 0) and b_row(n0, 1)).  K counts int8 codes; the maps'
+// boxes are R::kBK bytes of K wide, with the swizzle of that width.
+template <typename R, typename A, typename Epi>
+__global__ void __launch_bounds__(kThreads, R::kMinBlocks)
+wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+             const __grid_constant__ CUtensorMap map_out, const A loader, const Epi epi, int M, int N,
+             int K) {
+  constexpr int BN = R::kBN, kStages = R::kStages, BK = R::kBK;
+  constexpr uint32_t kABytes = kBM * BK, kStageBytes = (kBM + BN) * BK;
+  constexpr int kStaging = Epi::template staging_bytes<BN>();
+  static_assert(!A::kPacked || (kStages % 2 == 0 && BK == kBK),
+                "packed A fills pairs of 128-byte stages");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
-  // stage s at tiles0 + s * kStageBytes, then the staging buffers, then
-  // kStages `full` mbarriers and kStages `empty` ones
+  // stage s at tiles0 + s * kStageBytes (A at its start, Bt at kABytes), then
+  // the staging buffers, then kStages `full` mbarriers and kStages `empty` ones
   const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
   const uint32_t tiles0 = base + pad;
-  uint8_t* staging = smem_raw + pad + kStages * kStageBytes;
-  const uint32_t full0 = tiles0 + kStages * kStageBytes + 2 * Staging<BN, OutT>::kBytes;
+  uint8_t* const stages = smem_raw + pad;
+  uint8_t* const staging = stages + kStages * kStageBytes;
+  const uint32_t full0 = tiles0 + kStages * kStageBytes + 2 * kStaging;
   const uint32_t empty0 = full0 + 8 * kStages;
 
   const int num_m = (M + kBM - 1) / kBM;
   const int tiles = num_m * ((N + BN - 1) / BN);
-  const int kblocks = (K + kBK - 1) / kBK;
+  const int kblocks = (K + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
@@ -405,12 +552,30 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_consta
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int m0 = (tile % num_m) * kBM, n0 = (tile / num_m) * BN;
+        const typename A::At at = loader.at(m0);
         for (int kb = 0; kb < kblocks; ++kb) {
-          mbar_wait(empty0 + 8 * stage, phase ^ 1);  // a fresh barrier passes parity 1 at once
           const uint32_t dst = tiles0 + stage * kStageBytes, bar = full0 + 8 * stage;
-          mbar_expect_tx(bar, kStageBytes);
-          tma_load_2d(dst, &map_a, bar, kb * kBK, m0);
-          tma_load_2d(dst + kABytes, &map_b, bar, kb * kBK, n0);
+          if constexpr (A::kPacked) {
+            if ((kb & 1) == 0) {
+              // both stages of the pair; the packed box goes to the second's A
+              mbar_wait(empty0 + 8 * stage, phase ^ 1);
+              mbar_wait(empty0 + 8 * (stage + 1), phase ^ 1);
+              mbar_expect_tx(bar, kABytes + BN * BK);
+              loader.load(dst + kStageBytes, &map_a, bar, at, kb, BK);
+            } else {
+              mbar_expect_tx(bar, BN * BK);
+            }
+          } else {
+            mbar_wait(empty0 + 8 * stage, phase ^ 1);  // a fresh barrier passes parity 1 at once
+            mbar_expect_tx(bar, (kBM + BN) * BK);
+            loader.load(dst, &map_a, bar, at, kb, BK);
+          }
+          if constexpr (Epi::kSplitB) {
+            tma_load_2d(dst + kABytes, &map_b, bar, kb * BK, epi.b_row(n0, 0));
+            tma_load_2d(dst + kABytes + (BN / 2) * BK, &map_b, bar, kb * BK, epi.b_row(n0, 1));
+          } else {
+            tma_load_2d(dst + kABytes, &map_b, bar, kb * BK, n0);
+          }
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -431,11 +596,27 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_consta
     for (int kb = 0; kb < kblocks; ++kb) {
       mbar_wait(full0 + 8 * stage, phase);
       const uint32_t sa = tiles0 + stage * kStageBytes;
-      const uint64_t da = smem_desc(sa + g * 64 * kBK), db = smem_desc(sa + kABytes);
+      if constexpr (A::kPacked) {
+        if ((kb & 1) == 0) {
+          // this warpgroup's 64 packed rows: low nibbles to this stage's A,
+          // high nibbles in place (the same swizzled position in both)
+          uint4* lo = reinterpret_cast<uint4*>(stages + stage * kStageBytes + g * 64 * BK);
+          uint4* hi = reinterpret_cast<uint4*>(stages + (stage + 1) * kStageBytes + g * 64 * BK);
+#pragma unroll
+          for (int q = threadIdx.x & 127; q < 64 * BK / 16; q += 128) {
+            const uint4 w = hi[q];
+            lo[q] = unpack_chunk(w, false);
+            hi[q] = unpack_chunk(w, true);
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          warpgroup_sync(g);
+        }
+      }
+      const uint64_t da = smem_desc(sa + g * 64 * BK, BK), db = smem_desc(sa + kABytes, BK);
       fence_sums(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 32; ++kk) {
+      for (int kk = 0; kk < BK / 32; ++kk) {
         wgmma_tile<BN>(acc, da + 2 * kk, db + 2 * kk, (kb > 0 || kk > 0) ? 1 : 0);
       }
       wgmma_commit();
@@ -447,117 +628,184 @@ int8_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_consta
         phase ^= 1;
       }
     }
-    const int64_t row0 = static_cast<int64_t>(m0) + 64 * g;
-    if constexpr (Staging<BN, OutT>::kOn) {
-      if (vec_out != 0) {
-        store_tile_staged<BN, OutT>(acc, &map_out, alpha, beta, row0, n0, N, relu != 0,
-                                    staging + g * Staging<BN, OutT>::kBytes, g);
-        continue;
-      }
-    }
-    store_tile<BN, OutT>(acc, out, alpha, beta, row0, n0, M, N, relu != 0, vec_out != 0);
+    epi.template store<BN>(acc, &map_out, static_cast<int64_t>(m0) + 64 * g, n0,
+                           staging + g * kStaging, g);
   }
   // the last TMA stores must have read shared memory before the block ends
-  if (Staging<BN, OutT>::kOn && (threadIdx.x & 127) == 0) {
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  }
+  if ((threadIdx.x & 127) == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- host side
 
-// cuTensorMapEncodeTiled is a driver-API function and the build links only the
-// CUDA runtime: its address comes from the runtime's driver entry point query.
+// The tensor map encoders are driver-API functions and the build links only
+// the CUDA runtime: their addresses come from the runtime's driver entry
+// point query.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using EncodeIm2colFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                    const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+                                    cuuint32_t, cuuint32_t, const cuuint32_t*, CUtensorMapInterleave,
+                                    CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                    CUtensorMapFloatOOBfill);
+
+inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t rc = cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t rc = cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
+#endif
+  return rc == cudaSuccess && found == cudaDriverEntryPointSuccess ? p : nullptr;
+}
 
 inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
+  static const EncodeTiledFn fn = reinterpret_cast<EncodeTiledFn>(driver_fn("cuTensorMapEncodeTiled"));
   return fn;
 }
 
+inline EncodeIm2colFn encode_im2col() {
+  static const EncodeIm2colFn fn =
+      reinterpret_cast<EncodeIm2colFn>(driver_fn("cuTensorMapEncodeIm2col"));
+  return fn;
+}
+
+inline CUtensorMapSwizzle swizzle_of(int box_bytes) {
+  return box_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
 // a row-major [rows, cols] matrix of `type` (elem bytes each), boxes of
-// box_rows rows x 128 bytes, 128-byte swizzle
+// box_rows rows x box_bytes bytes (128, 64 or 32) with the swizzle of that
+// width
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
-                     int64_t rows, int64_t cols, int box_rows) {
+                     int64_t rows, int64_t cols, int box_rows, int box_bytes = 128) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * elem)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_bytes / elem), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estride[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, estride,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(box_bytes),
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The im2col map of an [n, h, w, c] int8 image for a kh x kw filter at
+// strides (sh, sw) and padding (ph, pw): boxes of 128 output pixels x bk
+// channels.  The corners bound the filter's top-left tap (from -pad to
+// size - 1 + pad - (filter - 1)); the traversal stride is the conv's.
+inline bool make_im2col_map(CUtensorMap* map, const void* x, int n, int h, int w, int c, int kh,
+                            int kw, int sh, int sw, int ph, int pw, int bk) {
+  const EncodeIm2colFn encode = encode_im2col();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(w) * c,
+                                 static_cast<cuuint64_t>(h) * w * c};
+  const int lower[2] = {-pw, -ph};
+  const int upper[2] = {pw - (kw - 1), ph - (kh - 1)};
+  const cuuint32_t estride[4] = {1, static_cast<cuuint32_t>(sw), static_cast<cuuint32_t>(sh), 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), dims, strides, lower,
+                upper, static_cast<cuuint32_t>(bk), static_cast<cuuint32_t>(kBM), estride,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(bk), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 inline CUtensorMapDataType map_type(float*) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT32; }
 inline CUtensorMapDataType map_type(__nv_bfloat16*) { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
 
-// What TMA can describe: every row stride a multiple of 16 bytes and both
-// bases 16-byte aligned.  int_matmul.gemm_route is the same test in Python.
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// What TMA can describe for the GEMM: every row stride a multiple of 16 bytes
+// and both bases 16-byte aligned.  int_matmul.gemm_route is the same test in
+// Python.
 inline bool tma_describable(const void* a, const void* bt, int64_t K) {
-  return K % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(bt) % 16 == 0;
+  return K % 16 == 0 && aligned16(a) && aligned16(bt);
 }
 
-// the tile width for a shape: 64 for the memory-bound N <= 64, 256 where a
-// long K makes the tensor-core rate the bound, else 128
+// What TMA's im2col mode can describe for the conv: one group, C a multiple
+// of 64 (a K block of 64 or 128 bytes inside one filter tap), aligned bases,
+// a traversal stride of at most 8 and corners and tap offsets inside the
+// 4-D map's range (filter and padding at most 32).  int_conv.conv_route is
+// the same test in Python.
+inline bool im2col_describable(const void* x, const void* w, int c, int groups, int kh, int kw,
+                               int sh, int sw, int ph, int pw) {
+  return groups == 1 && c % 64 == 0 && aligned16(x) && aligned16(w) && sh <= 8 && sw <= 8 &&
+         kh <= 32 && kw <= 32 && ph <= 32 && pw <= 32;
+}
+
+// the tile width for a GEMM shape: 64 for the memory-bound N <= 64, 256 where
+// a long K makes the tensor-core rate the bound, else 128
 inline int pick_bn(int64_t N, int64_t K) {
   if (N <= 64) return 64;
   if (N >= 256 && K >= 4096) return 256;
   return 128;
 }
 
-template <int BN, typename OutT>
-int launch_bn(const void* a, const void* bt, OutT* out, const float* alpha, const float* beta,
-              int64_t M, int64_t N, int64_t K, int relu, cudaStream_t stream) {
-  CUtensorMap map_a, map_b, map_out = {};
-  if (!make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, M, K, kBM) ||
-      !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bt, N, K, BN)) {
-    return -1;
+// One launch of the kernel over an M x N output with K codes of depth.  The
+// set-up that does not depend on the pointers (SM count, shared-memory
+// attribute, occupancy) runs once per kernel instance and device.  Returns
+// -1 for a failed set-up or a grid that does not fit, else 0 (the caller
+// reads cudaGetLastError).
+template <typename R, typename A, typename Epi>
+int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const CUtensorMap& map_out,
+           const A& loader, const Epi& epi, int64_t M, int64_t N, int64_t K, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<R, Epi>();
+  auto kernel = wgmma_kernel<R, A, Epi>;
+  static int slots[kMaxDevices] = {};  // SMs x resident blocks an SM; 0 = not set up, -1 = failed
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices) return -1;
+  if (slots[device] == 0) {
+    int sms = 0, per_sm = 0;
+    const bool ok =
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) == cudaSuccess &&
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem)) == cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) == cudaSuccess &&
+        per_sm >= 1;
+    slots[device] = ok ? sms * per_sm : -1;
   }
-  const bool vec = (N * static_cast<int64_t>(sizeof(OutT))) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (Staging<BN, OutT>::kOn && vec &&
-      !make_map(&map_out, map_type(out), static_cast<int>(sizeof(OutT)), out, M, N, 64)) {
-    return -1;
-  }
-  constexpr size_t smem = smem_bytes<BN, OutT>();
-  auto kernel = int8_wgmma_kernel<BN, OutT>;
-  int device = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem)) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) != cudaSuccess ||
-      per_sm < 1) {
-    return -1;
-  }
-  const int64_t tiles = ((M + kBM - 1) / kBM) * ((N + BN - 1) / BN);
+  if (slots[device] < 0) return -1;
+  const int64_t tiles = ((M + kBM - 1) / kBM) * ((N + R::kBN - 1) / R::kBN);
   if (tiles > 2147483647LL) return -1;
-  const int grid = static_cast<int>(tiles < static_cast<int64_t>(sms) * per_sm ? tiles : sms * per_sm);
-  kernel<<<grid, kThreads, smem, stream>>>(map_a, map_b, map_out, out, alpha, beta, static_cast<int>(M),
-                                           static_cast<int>(N), static_cast<int>(K), relu, vec);
+  const int grid = static_cast<int>(tiles < slots[device] ? tiles : slots[device]);
+  kernel<<<grid, kThreads, smem, stream>>>(map_a, map_b, map_out, loader, epi, static_cast<int>(M),
+                                           static_cast<int>(N), static_cast<int>(K));
   return 0;
 }
 
-// The route's launch.  Returns -1 for a shape it does not take (the caller
-// checks tma_describable first) or a failed set-up, else 0 (the caller reads
-// cudaGetLastError).
+// The dequant epilogue's output map (staged stores) where the tile width
+// stages and the rows are a multiple of 16 bytes; returns false on a failed
+// encode.
+template <int BN, typename OutT>
+bool dequant_out(DequantOut<OutT>* epi, CUtensorMap* map_out) {
+  epi->vec = (static_cast<int64_t>(epi->N) * static_cast<int64_t>(sizeof(OutT))) % 16 == 0 &&
+             aligned16(epi->out);
+  if (!Staging<BN, OutT>::kOn || epi->vec == 0) return true;
+  return make_map(map_out, map_type(epi->out), static_cast<int>(sizeof(OutT)), epi->out, epi->M,
+                  epi->N, 64);
+}
+
+template <int BN, typename OutT>
+int launch_gemm_bn(const void* a, const void* bt, OutT* out, const float* alpha, const float* beta,
+                   int64_t M, int64_t N, int64_t K, int relu, cudaStream_t stream) {
+  CUtensorMap map_a, map_b, map_out = {};
+  DequantOut<OutT> epi{out, alpha, beta, static_cast<int>(M), static_cast<int>(N), relu, 0};
+  if (!make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, M, K, kBM) ||
+      !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bt, N, K, BN) ||
+      !dequant_out<BN, OutT>(&epi, &map_out)) {
+    return -1;
+  }
+  return launch<Tile<BN>>(map_a, map_b, map_out, DenseA{}, epi, M, N, K, stream);
+}
+
+// The GEMM route's launch.  Returns -1 for a shape it does not take (the
+// caller checks tma_describable first) or a failed set-up, else 0 (the caller
+// reads cudaGetLastError).
 template <typename OutT>
 int launch_int8_wgmma(const void* a, const void* bt, void* out, const void* alpha, const void* beta,
                       int64_t M, int64_t N, int64_t K, int relu, cudaStream_t stream) {
@@ -570,12 +818,74 @@ int launch_int8_wgmma(const void* a, const void* bt, void* out, const void* alph
   const float* be = static_cast<const float*>(beta);
   switch (pick_bn(N, K)) {
     case 64:
-      return launch_bn<64, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
+      return launch_gemm_bn<64, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
     case 256:
-      return launch_bn<256, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
+      return launch_gemm_bn<256, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
     default:
-      return launch_bn<128, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
+      return launch_gemm_bn<128, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
   }
+}
+
+// The conv's rings by tile width and K box: as deep as two blocks an SM
+// leave room for beside their staging buffers (a ring of 5 stages at one
+// block an SM ran slower at all but one ResNet-50 shape on the H100,
+// PERF.md §6)
+template <int BN, int BK>
+struct ConvRing;
+template <>
+struct ConvRing<64, 64> : Ring<64, 6, 2, 64> {};
+template <>
+struct ConvRing<64, 128> : Ring<64, 3, 2, 128> {};
+template <>
+struct ConvRing<128, 64> : Ring<128, 4, 2, 64> {};
+template <>
+struct ConvRing<128, 128> : Ring<128, 2, 2, 128> {};
+
+template <int BN, int BK, typename OutT>
+int launch_conv_bn(const void* x, const void* w, OutT* out, const float* alpha, const float* bias,
+                   int n, int h, int wd, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw,
+                   int ho, int wo, int relu, cudaStream_t stream) {
+  const int64_t M = static_cast<int64_t>(n) * ho * wo, K = static_cast<int64_t>(kh) * kw * c;
+  CUtensorMap map_a, map_b, map_out = {};
+  DequantOut<OutT> epi{out, alpha, bias, static_cast<int>(M), o, relu, 0};
+  if (!make_im2col_map(&map_a, x, n, h, wd, c, kh, kw, sh, sw, ph, pw, BK) ||
+      !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, o, K, BN, BK) ||
+      !dequant_out<BN, OutT>(&epi, &map_out)) {
+    return -1;
+  }
+  const Im2colA loader{ho, wo, c, kw, sh, sw, ph, pw};
+  return launch<ConvRing<BN, BK>>(map_a, map_b, map_out, loader, epi, M, o, K, stream);
+}
+
+// The conv's TMA im2col route: out [n*ho*wo, o] row-major (NHWC).  Returns -1
+// for a shape it does not take (the caller checks im2col_describable first)
+// or a failed set-up, else 0 (the caller reads cudaGetLastError).
+template <typename OutT>
+int launch_int8_conv_wgmma(const void* x, const void* w, void* out, const void* alpha,
+                           const void* bias, int n, int h, int wd, int c, int o, int kh, int kw,
+                           int sh, int sw, int ph, int pw, int ho, int wo, int relu,
+                           cudaStream_t stream) {
+  if (!im2col_describable(x, w, c, 1, kh, kw, sh, sw, ph, pw) ||
+      static_cast<int64_t>(n) * ho * wo > 2147483647LL - kBM ||
+      static_cast<int64_t>(kh) * kw * c > 2147483647LL - kBK) {
+    return -1;
+  }
+  OutT* op = static_cast<OutT*>(out);
+  const float* al = static_cast<const float*>(alpha);
+  const float* be = static_cast<const float*>(bias);
+  // K blocks of 128 bytes, or 64 where C is an odd multiple of 64; tiles
+  // 128 x 64 for O <= 64, else 128 x 128
+  const bool wide_k = c % 128 == 0;
+  if (o <= 64) {
+    return wide_k ? launch_conv_bn<64, 128, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
+                                                  pw, ho, wo, relu, stream)
+                  : launch_conv_bn<64, 64, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
+                                                 pw, ho, wo, relu, stream);
+  }
+  return wide_k ? launch_conv_bn<128, 128, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
+                                                 pw, ho, wo, relu, stream)
+                : launch_conv_bn<128, 64, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
+                                                pw, ho, wo, relu, stream);
 }
 
 }  // namespace wg

@@ -20,21 +20,35 @@ groups of ``GROUP`` = 256; within group g, byte ``g*128 + j`` holds code
 ``g*256 + j`` in its low nibble and code ``g*256 + 128 + j`` in its high
 nibble, sign extended on unpack.
 
-The kernel is ``csrc/int4_gemm.cu`` on the block product of
-``csrc/int8_mma.cuh``, built with nvcc for sm_90a at first use and bound with
-ctypes.  On the serving path every shape is bounded by the bytes it moves.
-Its design: nibbles become int8 in the loader (the tensor cores have no 4-bit
-integer type); with a residual or a packed output the block's columns are
-renumbered so that a thread's two neighbouring sums are the nibbles of one
-byte; ragged M is masked, nothing is padded in memory.  The TPU version's row
-pairing and single-step body are devices of its matrix unit and have no
-counterpart here.  ``res_scale`` and ``out_scale`` stay on the device (the
+The kernel is ``csrc/int4_gemm.cu``, built with nvcc for sm_90a at first use
+and bound with ctypes.  On the serving path every shape is bounded by the
+bytes it moves.  Nibbles become int8 before the product (the tensor cores
+have no 4-bit integer type).  Two routes, chosen by ``int4_route`` from the
+operands, never by error (a failure on either raises):
+
+* ``'wgmma'`` where TMA can describe every operand (packed A, or unpacked A
+  with K % 16 == 0; every base 16-byte aligned): the persistent TMA +
+  ``wgmma`` kernel of ``csrc/int8_wgmma.cuh``, 128 x 64 tiles.  Packed A is
+  loaded once, one 128-byte box per packing-group row, and unpacked in shared
+  memory; with a residual or a packed output a tile's columns are 32 codes of
+  a packing group's low half and the 32 codes 128 further, so both nibbles
+  of a byte meet in one thread of the accumulator; byte outputs leave through
+  TMA stores.  The epilogue's true division per code bounds the serving
+  shapes;
+* ``'mma_sync'`` for the rest: the block product of ``csrc/int8_mma.cuh``
+  with an unpacking loader, and with a residual or a packed output the
+  block's columns renumbered so that a thread's two neighbouring sums are the
+  nibbles of one byte; ragged M is masked, nothing is padded in memory.
+
+The TPU version's row pairing and single-step body are devices of its matrix
+unit and have no counterpart here.  ``res_scale`` and ``out_scale`` stay on the device (the
 kernel reads them through pointers): a host copy would synchronise each of
 the 36 launches of a forward.
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
 it launches the kernel or raises.  ``int4_matmul.launches`` counts kernel
-launches, and nothing else.
+launches, and nothing else; ``launches_wgmma`` and ``launches_mma_sync`` count
+them by route.
 """
 
 from __future__ import annotations
@@ -61,7 +75,7 @@ def _library():
         lib = ctypes.CDLL(str(path))
         c_ptr, c_i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.cnnq_int4_gemm.argtypes = [c_ptr] * 8 + [c_i64] * 3 + [c_int] * 3 + [
-            ctypes.c_float, c_ptr]
+            ctypes.c_float, c_int, c_ptr]
         lib.cnnq_int4_gemm.restype = c_int
         _lib = lib
     return _lib
@@ -87,6 +101,15 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     lo = ((g & 0xF) ^ 8) - 8   # the low nibble's two's complement value
     hi = g >> 4                # arithmetic shift: the high nibble, sign extended
     return torch.stack([lo, hi], dim=-2).reshape(*packed.shape[:-1], c2 * 2)
+
+
+def int4_route(k: int, a_packed: bool, aligned: bool = True) -> str:
+    """The kernel route of an int4 GEMM with depth ``k`` (in codes):
+    ``'wgmma'`` where TMA can describe every operand (packed A with k % 256
+    == 0, or unpacked A with k % 16 == 0; ``aligned``: every base 16-byte
+    aligned), else ``'mma_sync'``.  ``csrc/int4_gemm.cu`` checks the same
+    condition."""
+    return 'wgmma' if k % (GROUP if a_packed else 16) == 0 and aligned else 'mma_sync'
 
 
 def _check(a, b, residual, res_scale, out_scale, a_packed, out_mode, out_dtype):
@@ -131,8 +154,10 @@ def _scalar(v, device):
 
 
 def launch(a, b, alpha, beta, residual, res_scale, out_scale, a_packed, fuse_relu, out_mode,
-           out_qmax, out_dtype):
-    """One launch of the CUDA kernel on ``a``'s current stream."""
+           out_qmax, out_dtype, route=None):
+    """One launch of the CUDA kernel on ``a``'s current stream.  ``route``
+    None takes ``int4_route``'s; ``'mma_sync'``, which takes every call, may
+    be asked for to measure it beside that route."""
     if a.device.type != 'cuda' or b.device != a.device:
         raise ValueError(f'int4 GEMM kernel needs CUDA tensors on one device, got '
                          f'{a.device} and {b.device}')
@@ -154,15 +179,22 @@ def launch(a, b, alpha, beta, residual, res_scale, out_scale, a_packed, fuse_rel
         mode = _MODES['bf16']
     out = torch.empty((m, n // 2 if out_mode == 'packed' else n), dtype=dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    own = int4_route(k, a_packed, all(t.data_ptr() % 16 == 0 for t in (a, bt, out)
+                                      + (() if res is None else (res,))))
+    route = own if route is None else route
+    if route not in (own, 'mma_sync'):
+        raise ValueError(f'the {route} route cannot take this call; its route is {own}')
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _library().cnnq_int4_gemm(
             a.data_ptr(), bt.data_ptr(), out.data_ptr(), alpha.data_ptr(), ptr(beta), ptr(res),
             ptr(rs), ptr(osc), m, n, k, int(a_packed), int(fuse_relu), mode, float(out_qmax),
-            stream)
+            int(route == 'wgmma'), stream)
     if rc != 0:
-        raise RuntimeError(f'int4 GEMM kernel launch failed: CUDA error {rc}')
+        raise RuntimeError(f'int4 GEMM kernel launch failed ({route} route): CUDA error {rc}')
     int4_matmul.launches += 1
+    counter = f'launches_{route}'
+    setattr(int4_matmul, counter, getattr(int4_matmul, counter) + 1)
     return out
 
 
@@ -195,6 +227,8 @@ def int4_matmul(a, b, alpha, beta=None, *, residual=None, res_scale=None, out_sc
 
 
 int4_matmul.launches = 0
+int4_matmul.launches_wgmma = 0
+int4_matmul.launches_mma_sync = 0
 
 
 def int4_matmul_plain(a, b, alpha, beta=None, *, residual=None, res_scale=None, out_scale=None,

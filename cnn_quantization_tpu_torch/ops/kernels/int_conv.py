@@ -9,19 +9,25 @@ nvcc for sm_90a at first use and bound with ctypes.  Activations are logical
 NCHW in channels_last memory, weights OIHW prepared once in channels_last
 memory so K runs (kh, kw, c) contiguously; zero padding happens in the
 integer domain (exact at zero point 0); strides, padding and groups are
-general.  Two routes, chosen by ``conv_route`` from the shape:
+general.  Three routes, chosen by ``conv_route`` from the shape:
 
 * ``'depthwise'`` (groups == C == O, any filter, stride and padding): a direct
   kernel without tensor cores, a thread for 16 channels of one output
   position, four filter taps of a channel summed by one ``__dp4a``; memory
   bounds it (a float32 output is four bytes for every int8 input byte);
-* ``'implicit_gemm'`` for every other conv (ResNet's 3x3 and strided 1x1
-  convs, the space-to-depth stem, ResNeXt's groups, depthwise with a
-  multiplier): the block product of ``csrc/int8_mma.cuh`` with the image
-  gathered on the fly (no im2col buffer in device memory).  A 3x3 conv of
-  ResNet-50 does 2*9*C operations per output, which costs one int8 byte read
-  and four float32 bytes written: up to C = 128 the memory rate bounds it,
-  from C = 256 on the int8 tensor-core rate.
+* ``'im2col_wgmma'`` (one group, C a multiple of 64, 16-byte aligned
+  operands, what TMA's im2col mode can describe: every 3x3 conv and strided
+  1x1 downsample of the ResNet family): the persistent TMA + ``wgmma`` kernel
+  of ``csrc/int8_wgmma.cuh``, its A tiles loaded by TMA in im2col mode (128
+  output pixels x one filter tap x 64 or 128 channels a load, padding by
+  TMA's zero fill), so no im2col buffer is written to device memory.  A 3x3
+  conv of ResNet-50 does 2*9*C operations per output, which costs one int8
+  byte read and four float32 bytes written: up to C = 128 the memory rate
+  bounds it, from C = 256 on the int8 tensor-core rate;
+* ``'implicit_gemm'`` for every other conv (the space-to-depth stem with
+  Cg = 12, ResNeXt's groups, depthwise with a multiplier): the block product
+  of ``csrc/int8_mma.cuh`` with the image gathered on the fly by the
+  threads.
 
 ``int8_conv`` keeps the JAX signature (layouts apart).  A convolution that is
 a plain matrix product (1x1, stride 1, no padding, one group) goes to the int8
@@ -34,8 +40,8 @@ bit, and is kept as a cross-check of the implicit-GEMM kernel.
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
 they launch the kernels or raise.  ``int8_conv_dequant.launches`` counts
-launches of the conv kernel, and nothing else; ``launches_depthwise`` and
-``launches_implicit_gemm`` count them by route.
+launches of the conv kernel, and nothing else; ``launches_depthwise``,
+``launches_im2col_wgmma`` and ``launches_implicit_gemm`` count them by route.
 """
 
 from __future__ import annotations
@@ -89,11 +95,24 @@ def _quantize_act(x, act_bits: int, act_scale):
     return quantize_sym_codes(x, per, act_bits), scale
 
 
-def conv_route(in_ch: int, out_ch: int, groups: int) -> str:
+_ROUTE_CODES = {'implicit_gemm': 0, 'depthwise': 1, 'im2col_wgmma': 2}
+
+
+def conv_route(in_ch: int, out_ch: int, groups: int, *, kernel=(1, 1), strides=(1, 1),
+               padding=(0, 0), aligned: bool = True) -> str:
     """The kernel route of an int8 conv: ``'depthwise'`` for groups == in_ch
-    == out_ch (one filter per channel), else ``'implicit_gemm'``.
-    ``csrc/int8_conv.cu`` checks the same condition."""
-    return 'depthwise' if groups == in_ch == out_ch else 'implicit_gemm'
+    == out_ch (one filter per channel); ``'im2col_wgmma'`` where TMA's im2col
+    mode can describe the image (one group, in_ch a multiple of 64,
+    ``aligned``: both bases 16-byte aligned, strides at most 8, filter and
+    padding at most 32); else ``'implicit_gemm'``.  ``csrc/int8_conv.cu``
+    checks the same condition (``im2col_describable`` in
+    ``csrc/int8_wgmma.cuh``)."""
+    if groups == in_ch == out_ch:
+        return 'depthwise'
+    if (groups == 1 and in_ch % 64 == 0 and aligned and max(strides) <= 8
+            and max(kernel) <= 32 and max(padding) <= 32):
+        return 'im2col_wgmma'
+    return 'implicit_gemm'
 
 
 def _check_conv(x_q, w_codes, strides, padding, groups):
@@ -112,9 +131,12 @@ def _check_conv(x_q, w_codes, strides, padding, groups):
                          f'{tuple(x_q.shape)} and weight {tuple(w_codes.shape)}')
 
 
-def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_dtype):
+def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_dtype,
+           route=None):
     """One launch of the CUDA kernel on ``x_q``'s current stream; returns the
-    NCHW output in channels_last memory."""
+    NCHW output in channels_last memory.  ``route`` None takes
+    ``conv_route``'s; ``'implicit_gemm'``, which computes every shape, may be
+    asked for to measure it beside that route."""
     if x_q.device.type != 'cuda' or w_codes.device != x_q.device:
         raise ValueError(f'int8 conv kernel needs CUDA tensors on one device, got '
                          f'{x_q.device} and {w_codes.device}')
@@ -131,20 +153,22 @@ def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_d
     alpha = int_matmul.column_vector(alpha, o, x.device)
     bias = None if bias is None else int_matmul.column_vector(bias, o, x.device)
     out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=x.device)
-    route = conv_route(c, o, groups)
+    own = conv_route(c, o, groups, kernel=(kh, kw), strides=(sh, sw), padding=(ph, pw),
+                     aligned=x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    route = own if route is None else route
+    if route not in (own, 'implicit_gemm'):
+        raise ValueError(f'the {route} route cannot take this conv; its route is {own}')
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _library().cnnq_int8_conv(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), alpha.data_ptr(),
             None if bias is None else bias.data_ptr(), n, h, wd, c, o, kh, kw, sh, sw, ph, pw,
-            groups, int(fuse_relu), code, int(route == 'depthwise'), stream)
+            groups, int(fuse_relu), code, _ROUTE_CODES[route], stream)
     if rc != 0:
         raise RuntimeError(f'int8 conv kernel launch failed ({route} route): CUDA error {rc}')
     int8_conv_dequant.launches += 1
-    if route == 'depthwise':
-        int8_conv_dequant.launches_depthwise += 1
-    else:
-        int8_conv_dequant.launches_implicit_gemm += 1
+    counter = f'launches_{route}'
+    setattr(int8_conv_dequant, counter, getattr(int8_conv_dequant, counter) + 1)
     return out.permute(0, 3, 1, 2)
 
 
@@ -164,6 +188,7 @@ def int8_conv_dequant(x_q, w_codes, alpha, bias=None, *, strides=(1, 1), padding
 
 int8_conv_dequant.launches = 0
 int8_conv_dequant.launches_depthwise = 0
+int8_conv_dequant.launches_im2col_wgmma = 0
 int8_conv_dequant.launches_implicit_gemm = 0
 
 

@@ -64,7 +64,7 @@ class QuantConfig:
 
 
 _MID_TREAD = ('mid-tread quantization (ops/mid_tread.py) is not ported yet: '
-              'ROADMAP Queue 1 item 1')
+              'ROADMAP Queue 1 item 12')
 _KLD = ('KLD clipping (calib/kld.py and the native threshold sweep) is not '
         'ported yet: ROADMAP Queue 1 item 8')
 

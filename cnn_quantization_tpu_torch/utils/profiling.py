@@ -256,11 +256,12 @@ def device_time_by_kernel(fn):
     return wall_ms, device_us
 
 
-# device records by kernel class: the port's kernels by the loader or kernel
-# name nvcc gives them (each route of the int8 GEMM and conv), PyTorch's
-# elementwise passes, copies
-KERNEL_CLASSES = (('int4_gemm', ('Int4A',)), ('int8_gemm', ('DenseA', 'int8_wgmma_kernel')),
-                  ('int8_conv', ('ConvA', 'int8_depthwise_kernel')),
+# device records by kernel class: the port's kernels by the loader, epilogue
+# or kernel name in their names (the TMA + wgmma kernel of all three integer
+# kernels is one template: its A loader or epilogue names the kernel; the
+# first class that matches wins), PyTorch's elementwise passes, copies
+KERNEL_CLASSES = (('int4_gemm', ('Int4A', 'Int4WgEpilogue')), ('int8_gemm', ('DenseA',)),
+                  ('int8_conv', ('ConvA', 'Im2colA', 'int8_depthwise_kernel')),
                   ('fake_quant', ('fake_quant_kernel',)), ('stream_copy', ('stream_copy_kernel',)),
                   ('elementwise', ('elementwise_kernel',)), ('memcpy', ('Memcpy',)))
 

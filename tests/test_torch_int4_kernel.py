@@ -201,6 +201,23 @@ def test_matmul_shallow_k_every_mode(out_mode, with_res):
         np.testing.assert_array_equal(g, torch.from_numpy(exact).bfloat16().float().numpy())
 
 
+@pytest.mark.parametrize('m,k,n,a_packed,res,out_mode', [
+    (130, 256, 256, True, True, 'packed'),   # one packing group a tile, ragged M, residual
+    (200, 512, 64, True, False, 'int8'),     # N = 64 -> int8 codes, two packed groups of K
+    (70, 64, 512, False, True, 'int8'),      # K = 64 in one 64-byte K block, two groups of N
+])
+def test_wgmma_route_shapes_match_jax(m, k, n, a_packed, res, out_mode):
+    """Calls the ``wgmma`` route takes (its plain version here) against the
+    JAX kernel in interpret mode: codes equal to exact arithmetic, JAX within
+    one step at under 1e-3 of the codes."""
+    assert i4.int4_route(k, a_packed) == 'wgmma'
+    case = _case(13, m, k, n, res=res)
+    kw = dict(res_scale=0.11 if res else None, out_scale=0.07, relu=True, out_mode=out_mode,
+              qmax=7.0)
+    got, want = _both(case, a_packed=a_packed, **kw)
+    _assert_codes(got, want, _exact(case, **kw), out_mode)
+
+
 def test_matmul_f32_mode_honours_out_dtype_and_none_beta():
     case = _case(6, 9, 64, 24)
     t = {k: torch.from_numpy(v) for k, v in case.items()}
@@ -221,6 +238,7 @@ def test_wrapper_contract_and_shape_errors():
     before = i4.int4_matmul.launches
     i4.int4_matmul(z(4, 128), z(256, 256), ones, None, a_packed=True)
     assert i4.int4_matmul.launches == before == 0
+    assert i4.int4_matmul.launches_wgmma == i4.int4_matmul.launches_mma_sync == 0
     with pytest.raises(ValueError, match='CUDA'):
         i4.launch(z(4, 256), z(256, 256), ones, None, None, None, None, False, False, 'f32',
                   127.0, torch.float32)

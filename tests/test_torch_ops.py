@@ -274,6 +274,14 @@ def test_quantize_weight_matches(cfg_kw):
     np.testing.assert_array_equal(got.numpy().transpose(2, 3, 1, 0), np.asarray(want))
 
 
+def test_mid_tread_message_names_its_roadmap_item():
+    """Mid-tread quantization is ROADMAP Queue 1 item 12; the message says so
+    (as the CLI's does) and names no other item."""
+    x = torch.randn(2, 4, 6, 6)
+    with pytest.raises(NotImplementedError, match=r'ROADMAP Queue 1 item 12$'):
+        q.quantize_activation(x, q.QuantConfig(num_bits=4, clipping='laplace', mtd_quant=True))
+
+
 def test_deferred_branches_raise():
     x = torch.randn(2, 4, 6, 6)
     with pytest.raises(NotImplementedError, match='mid-tread'):
