@@ -4,10 +4,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc per
 source, started together), holds each against its plain PyTorch version at the
-shapes the main paths give it, and drives the four main paths at 224x224,
+shapes the main paths give it, and drives the main paths at 224x224,
 checking that each went through its kernels (five kernels in all: fake-quant,
-int8 GEMM, int8 conv, int4-packed GEMM, stream copy).  The first three paths
-run at batch 64:
+int8 GEMM, int8 conv, int4-packed GEMM, stream copy).  The simulation and the
+two serving paths run at batch 64:
 
   * simulation: ResNet-50 W4A4 headline recipe (weight pass, statistics
     collection, .npz round trip, qparam freeze, frozen evaluation, one dynamic
@@ -20,6 +20,12 @@ run at batch 64:
     scale freeze with the packed grid, frozen packed evaluation; one forward
     each for stages (1,) and (2, 3) and for scales without the packed keys)
     through the int4-packed GEMM, the int8 conv and the int8 GEMM;
+  * the rest of the simulation CLI: ``inference_sim.main`` in-process on
+    ResNet-50 at batch 8 (phase ``cli_path``): KLD calibration (collect with
+    the C++ threshold sweep, then use, frozen and with -me dynamic through
+    the kernel's reference_per_tensor mode), mid-tread quantization,
+    stochastic rounding (seeded) and the sweeps and outputs (-ep, -ct, -ms,
+    -dd), each run's fake-quant launches by mode against the site table;
   * the throughput bench (``python3 -m cnn_quantization_tpu_torch.bench``):
     ResNet-50 with bfloat16 activations at batch 128 (W4A4 simulation, bf16
     baseline, W8A8 serving, W4A4 serving plain and packed), the batch sweep,
@@ -46,6 +52,8 @@ it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import csv
+import dataclasses
 import functools
 import io
 import json
@@ -1477,6 +1485,296 @@ def stream_copy_timing(device, card):
     return row
 
 
+# ---------------------------------------------------------------- the CLI path
+
+CLI_BATCH = 8
+CLI_SITES = ('conv0_activation', 'conv2_activation', 'avgpool0_out')  # stem, stage 1, fc input
+CLI_ORDER = ['conv2_activation', 'conv10_activation', 'linear0_activation']
+MODE_NAMES = {fq.AFFINE: 'affine', fq.STOCHASTIC: 'stochastic', fq.MINMAX: 'reference_per_tensor'}
+
+
+def predicted_site_modes(policy, sites, stats=None, frozen=()):
+    """Fake-quant launches of one quantized forward by kernel mode, from the
+    site table and the quantizer's dispatch (ops/quantizer.py): a frozen site
+    one affine launch; a dynamic one by its branch (KLD and per-tensor
+    min/max: reference_per_tensor; clipped or per-channel: affine, or
+    stochastic under -s); a mid-tread site none."""
+    ctx = QuantizeContext(policy, stats=stats)
+    modes = Counter()
+    for site, shape in sites:
+        cfg = ctx.config_for(site)
+        if cfg is None:
+            continue
+        if site.id in frozen and not (cfg.measure_entropy or cfg.stochastic):
+            modes['affine'] += 1
+            continue
+        per_channel = cfg.pcq_a and len(shape) == 4 and (shape[2] > 1 or shape[3] > 1)
+        if cfg.kld:
+            modes['reference_per_tensor'] += 1
+        elif cfg.clipping != 'no' and cfg.mtd_quant:
+            continue
+        elif cfg.clipping != 'no' or cfg.pcq_w or per_channel:
+            modes['stochastic' if cfg.stochastic else 'affine'] += 1
+        else:
+            modes['stochastic' if cfg.stochastic else 'reference_per_tensor'] += 1
+    return modes
+
+
+def predicted_weight_modes(policy, params):
+    """Fake-quant launches of the weight pass by mode: one a conv or linear
+    weight, affine per channel under -pcq_w, none for a mid-tread weight."""
+    configs = policy.tag_configs()
+    modes = Counter()
+    for name, w in params.items():
+        if not (name.endswith('.weight') and w.ndim in (2, 4)):
+            continue
+        cfg = configs['weight' if w.ndim == 4 or w.shape[0] != 1000 else 'weight_classifier']
+        if cfg is None or (cfg.pcq_w and cfg.mtd_quant):
+            continue
+        modes['affine' if cfg.pcq_w else 'reference_per_tensor'] += 1
+    return modes
+
+
+def times_counter(counter, n):
+    return Counter({k: v * n for k, v in counter.items()})
+
+
+@contextlib.contextmanager
+def cli_instrumented():
+    """Counts the fake-quant kernel's launches by mode and records the logits
+    of every forward the CLI makes; the wrapper's own counter is set to 0."""
+    modes, logits = Counter(), []
+    real_launch, real_make_forward = fq.launch, QuantEngine.make_forward
+
+    def launch(x, p0, p1, qmax, channel_dim, mode, seed=0):
+        modes[MODE_NAMES[mode]] += 1
+        return real_launch(x, p0, p1, qmax, channel_dim, mode, seed)
+
+    def make_forward(self, *a, **kw):
+        fwd = real_make_forward(self, *a, **kw)
+
+        def recording(params, stats, images):
+            out, aux = fwd(params, stats, images)
+            logits.append(out.detach().clone())
+            return out, aux
+        return recording
+
+    fq.fake_quant_fused.launches = 0
+    with mock.patch.object(fq, 'launch', launch), \
+            mock.patch.object(QuantEngine, 'make_forward', make_forward):
+        yield modes, logits
+
+
+def cli_run(argv):
+    """One in-process call of the port's inference_sim on the card: its
+    stdout lines, result line, logits, fake-quant launches (total and by
+    mode) and wall seconds."""
+    from cnn_quantization_tpu_torch.cli import inference_sim
+    buf = io.StringIO()
+    with cli_instrumented() as (modes, logits), contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        rc = inference_sim.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0, f'inference_sim {argv}: exit {rc}')
+    res = json.loads(lines[-1]) if lines and lines[-1].startswith('{') else None
+    return dict(lines=lines, res=res, logits=logits, modes=modes, wall_s=wall,
+                launches=fq.fake_quant_fused.launches)
+
+
+def read_csv(path):
+    with open(path, newline='') as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def kld_sweeps_agree(device, params, engine, images):
+    """The C++ sweep against the port's numpy sweep on the card's captured
+    activations of three sites, two images each: within two bins."""
+    from cnn_quantization_tpu_torch.calib import kld
+    from cnn_quantization_tpu_torch.calib.capture import make_capture_fn
+    rows = kld.acts_to_host(make_capture_fn(engine)(params, images))
+    out = {}
+    for site in CLI_SITES:
+        r = rows[site][:2]
+        native = kld.kld_threshold_batch(r)
+        plain = kld.kld_threshold_batch(r, use_native=False)
+        bins = 2 * 2 * np.abs(r).max(axis=1) / 2001
+        out[site] = dict(native=native.tolist(), numpy=plain.tolist(),
+                         bins_apart=(np.abs(native - plain) / (bins / 2)).tolist())
+        check(np.all(np.abs(native - plain) <= bins), f'KLD sweeps disagree at {site}: {out[site]}')
+    return out
+
+
+def cli_path(device, card, arch='resnet50', size=224, batch=CLI_BATCH):
+    """The port's inference_sim in-process on the card for ResNet-50 at
+    224x224 and full width, batch 8, seeded random weights: (a) KLD collect
+    then use, frozen and dynamic (-me); (b) mid-tread; (c) stochastic
+    rounding; (d) the sweeps and outputs (-ep, -ct, -ms, -dd).  Every run's
+    fake-quant launches by mode against the site table's prediction."""
+    from cnn_quantization_tpu_torch.calib import capture, kld
+    model, meta = build_model(arch, device=device, seed=0)
+    params = dict(model.state_dict())
+    sites = discover_sites(model, (1, 3, size, size))
+    base = ['-a', arch, '--input_size', str(size), '-b', str(batch), '--subset', str(2 * batch)]
+    w4a4 = ['--qtype', 'int4', '-qw', 'int4']
+    report, launches = dict(arch=arch, input_size=size, batch=batch, sites=len(sites)), 0
+
+    def held(name, run, predicted):
+        nonlocal launches
+        launches += run['launches']
+        check(run['modes'] == predicted and sum(predicted.values()) == run['launches'],
+              f'{name}: fake-quant launches {dict(run["modes"])}, predicted {dict(predicted)}')
+        finite = all(bool(torch.isfinite(t).all()) for t in run['logits'])
+        check(finite, f'{name}: non-finite logits')
+        entry = dict(launches=dict(run['modes']), wall_s=run['wall_s'])
+        if run['res'] is not None:
+            entry.update(images_per_sec=run['res']['images_per_sec'], loss=run['res']['loss'])
+        report[name] = entry
+        return entry
+
+    with tempfile.TemporaryDirectory() as home, contextlib.chdir(home), \
+            mock.patch.dict(os.environ, {'HOME': home}):
+        # (a) KLD: collect thresholds over 16 images, timing the three stages
+        t = Counter()
+        real_capture, real_host, real_sweep = (capture.make_capture_fn, kld.acts_to_host,
+                                               kld.kld_threshold_batch)
+
+        def timed(key, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                t[key] += time.perf_counter() - t0
+                return out
+            return call
+
+        with mock.patch.object(capture, 'make_capture_fn',
+                               lambda eng: timed('capture_s', real_capture(eng))), \
+                mock.patch.object(kld, 'acts_to_host', timed('host_copy_s', real_host)), \
+                mock.patch.object(kld, 'kld_threshold_batch', timed('sweep_s', real_sweep)):
+            run = cli_run(base + w4a4 + ['-sm', 'collect', '-kld', '-cs', str(2 * batch)])
+        # collect mode runs no weight pass: three error-column launches a site and batch
+        held('kld_collect', run, Counter(affine=3 * len(sites) * 2))
+        report['kld_collect'].update({k: t[k] for k in ('capture_s', 'host_copy_s', 'sweep_s')})
+        stats = load_stats(os.path.join(home, 'mxt-sim-tpu', 'statistics', f'{arch}_kld_int4.npz'))
+        missing = [s.id for s, _ in sites for k in ('min', 'mean', 'max')
+                   if f'scalar/{k}_kld_th' not in stats.get(s.id, {})]
+        check(not missing, f'sites without KLD thresholds: {missing}')
+        eng = QuantEngine(model, QuantPolicy(arch=arch), meta)
+        images = next(synthetic_batches(batch, 1, size=size, seed=12345))[0]
+        report['kld_native_vs_numpy'] = kld_sweeps_agree(device, params, eng, images)
+
+        kld_use = base + w4a4 + ['-pcq_w', '-sm', 'use', '-kld']
+        policy = QuantPolicy(arch=arch, qtype='int4', qweight='int4', pcq_weights=True, kld=True)
+        run = cli_run(kld_use)
+        check(f'Froze qparams for {len(sites)} sites' in run['lines'], 'not every KLD site froze')
+        held('kld_use_frozen', run, predicted_weight_modes(policy, params)
+             + times_counter(Counter(affine=len(sites)), 2))
+        # -me keeps the entropy-measuring sites dynamic: the KLD branch through
+        # the kernel's reference_per_tensor mode, each call held to the plain version
+        hold = dict(calls=0, max_abs_err=0.0)
+        real_sem = fq.fake_quant_kernel_semantics_fused
+
+        def semantics(x, delta, offset, num_bits):
+            got = real_sem(x, delta, offset, num_bits)
+            want = fq.fake_quant_kernel_semantics_plain(x, delta, offset, num_bits)
+            hold['calls'] += 1
+            hold['max_abs_err'] = max(hold['max_abs_err'], float((got - want).abs().max()))
+            return got
+
+        me_policy = dataclasses.replace(policy, measure_entropy=True)
+        qparams = QuantEngine(model, me_policy, meta).freeze_qparams(
+            stats, input_shape=(1, size, size, 3))
+        with mock.patch.object(fq, 'fake_quant_kernel_semantics_fused', semantics):
+            run = cli_run(kld_use + ['-me', '--subset', str(batch)])
+        per_forward = predicted_site_modes(me_policy, sites, stats, frozen=qparams)
+        held('kld_use_dynamic', run, predicted_weight_modes(me_policy, params) + per_forward)
+        check(hold['calls'] == per_forward['reference_per_tensor'] > 0
+              and hold['max_abs_err'] == 0.0, f'reference_per_tensor vs plain: {hold}')
+        report['kld_use_dynamic']['held_to_plain'] = hold
+
+        # (b) mid-tread with bit allocation, measuring the code entropy
+        mtq = w4a4 + ['-mtq', '-c', 'laplace', '-pcq_w', '-pcq_a', '-baa', '-baw', '-me']
+        policy = QuantPolicy(arch=arch, qtype='int4', qweight='int4', pcq_weights=True,
+                             pcq_act=True, clipping='laplace', bit_alloc_act=True,
+                             bit_alloc_weight=True, measure_entropy=True, mtd_quant=True)
+        run = cli_run(base + mtq)
+        per_forward = predicted_site_modes(policy, sites)
+        activation_sites = sum(s.tag == 'activation' for s, _ in sites)
+        check(sum(per_forward.values()) == len(sites) - activation_sites - 1,
+              f'mid-tread: activation sites would launch fake-quant: {per_forward}')
+        entry = held('mid_tread', run, predicted_weight_modes(policy, params)
+                     + times_counter(per_forward, 2))
+        entry['avg_entropy'] = run['res']['avg_entropy']
+        check(0.0 < entry['avg_entropy'] <= 4.0, f"mid-tread entropy {entry['avg_entropy']}")
+
+        # (c) stochastic rounding on the headline recipe: seeded
+        headline = w4a4 + ['-pcq_w', '-pcq_a', '-c', 'laplace', '-baa', '-baw', '-bcw']
+        policy = QuantPolicy(arch=arch, **HEADLINE, stochastic=True)
+        runs = {}
+        for name, extra in (('stochastic_seed1', ['-s', '--seed', '1']),
+                            ('stochastic_seed1_again', ['-s', '--seed', '1']),
+                            ('stochastic_seed2', ['-s', '--seed', '2']),
+                            ('deterministic_seed1', ['--seed', '1'])):
+            runs[name] = cli_run(base + headline + extra)
+            p = policy if '-s' in extra else dataclasses.replace(policy, stochastic=False)
+            held(name, runs[name], predicted_weight_modes(p, params)
+                 + times_counter(predicted_site_modes(p, sites), 2))
+        same = all(torch.equal(a, b) for a, b in zip(runs['stochastic_seed1']['logits'],
+                                                     runs['stochastic_seed1_again']['logits']))
+        other = any(not torch.equal(a, b) for a, b in zip(runs['stochastic_seed1']['logits'],
+                                                          runs['stochastic_seed2']['logits']))
+        noisy = any(not torch.equal(a, b) for a, b in zip(runs['stochastic_seed1']['logits'],
+                                                          runs['deterministic_seed1']['logits']))
+        report['stochastic'] = dict(
+            stochastic_launches_per_forward=predicted_site_modes(policy, sites)['stochastic'],
+            same_seed_identical=same, other_seed_differs=other, noise_moves_logits=noisy)
+        check(same and other and noisy, f"stochastic: {report['stochastic']}")
+
+        # (d) the sweeps and outputs, one batch each
+        one = ['-a', arch, '--input_size', str(size), '-b', str(batch), '--subset', str(batch)]
+        recipe = w4a4 + ['-pcq_w', '-pcq_a', '-c', 'laplace']
+        run = cli_run(one + recipe + ['-ep'])
+        report['eval_precision'] = dict(wall_s=run['wall_s'], launches=dict(run['modes']))
+        launches += run['launches']
+        cols, rows = read_csv(f'results/precision/{arch}_laplace_clipping.csv')
+        check(cols == ['dtype', 'val_prec1', 'val_prec5']
+              and [r[0] for r in rows] == ['fp32', 'int8', 'int7', 'int6', 'int5', 'int4'],
+              f'-ep CSV: {cols} {rows}')
+        with open('order.json', 'w') as f:
+            json.dump(CLI_ORDER, f)
+        run = cli_run(one + recipe + ['-ct', '--order_file', 'order.json'])
+        report['custom_test'] = dict(wall_s=run['wall_s'], launches=dict(run['modes']))
+        launches += run['launches']
+        cols, rows = read_csv(f'results/custom_test/{arch}_max_mse_laplace_cliping_'
+                              'layer_selection.csv')
+        check(cols == ['num_8bit_layers', 'indexes', 'val_prec1', 'val_prec5']
+              and [r[0] for r in rows] == ['1', '2', '3', '4']
+              and rows[-1][1] == str(['conv0_activation'] + CLI_ORDER), f'-ct CSV: {rows}')
+        run = cli_run(one + recipe + ['-ms'])
+        report['measure_stats'] = dict(wall_s=run['wall_s'], launches=dict(run['modes']))
+        launches += run['launches']
+        cols, rows = read_csv(os.path.join(home, 'mxt-sim-tpu', 'distance', arch,
+                                           f'{arch}_distance.csv'))
+        check(cols == ['', 'norm_fp', 'norm_q', 'mse', 'cos', 'rel_err']
+              and sorted(r[0] for r in rows) == sorted(s.id for s, _ in sites)
+              and all(np.isfinite(float(v)) for r in rows for v in r[1:]), f'-ms CSV: {cols}')
+        run = cli_run(['-a', arch, '--input_size', str(size), '-b', '2', '--subset', '2']
+                      + recipe + ['-dd', 'dump'])
+        report['dump_dir'] = dict(wall_s=run['wall_s'], launches=dict(run['modes']))
+        launches += run['launches']
+        shapes = {s.id: [2, *shape[1:]] for s, shape in sites}
+        dumped = {f[:-len('.npy')]: list(np.load(os.path.join('dump', 'batch0', f),
+                                                 mmap_mode='r').shape)
+                  for f in os.listdir(os.path.join('dump', 'batch0'))}
+        check(dumped == shapes, f'-dd files: {sorted(dumped)}')
+    report['launches'] = launches
+    emit('cli_path', card=card, **report)
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1521,6 +1819,9 @@ def main():
     e2e = end_to_end_kernel_vs_plain(engine, params_q, qparams, stats, images)
     emit('end_to_end_kernel_vs_plain', **e2e)
     del engine, params_q, qparams, stats
+
+    # ---- main path 1, the rest of the CLI: KLD, mid-tread, stochastic, the sweeps
+    cli = cli_path(device, card)
 
     # ---- main path 2: true-int8 serving through the int8 GEMM and conv kernels
     eng, sp, scales, pq, images, srep = drive_serving_path(device)
@@ -1623,7 +1924,8 @@ def main():
         {'name': 'fake_quant', 'route': 'cuda',
          'source': 'cnn_quantization_tpu_torch/csrc/fake_quant.cu',
          'replaces': REPLACES, 'modes': ['affine', 'stochastic', 'reference_per_tensor'],
-         'launches': rep['launches'], 'bench_launches': bench_launches['fake_quant'],
+         'launches': rep['launches'], 'cli_launches': cli['launches'],
+         'bench_launches': bench_launches['fake_quant'],
          'max_abs_err': max(max_err, bench_err['fake_quant']), 'ms': ms,
          'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
          'library_ms': library_ms},

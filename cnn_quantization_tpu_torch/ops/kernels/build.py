@@ -7,6 +7,9 @@ covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source rebuilds and an unchanged one is reused.  Nothing here runs at
 import time; the kernel wrappers build at first use, one blocking nvcc call
 per source; ``build_libraries`` starts several sources' calls together.
+
+``build_host_library`` does the same for a host C++ source, ``csrc/<name>.cpp``,
+with the host compiler (the KLD calibration sweep; no device code).
 """
 
 from __future__ import annotations
@@ -41,6 +44,11 @@ def nvcc_path() -> str:
                        'the port\'s kernels')
 
 
+# the flags of the JAX package's native/Makefile, without -march=native (the
+# library is built where it runs, but need not be tuned to that CPU)
+HOST_CXX_FLAGS = ('-O3', '-fPIC', '-std=c++17', '-Wall', '-shared')
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC_DIR / f'{name}.cu').read_bytes())
     for header in sorted(CSRC_DIR.glob('*.cuh')):
@@ -64,6 +72,32 @@ def build_library(name: str) -> tuple[Path, str]:
         raise RuntimeError(f'nvcc failed for {name}.cu:\n{proc.stdout}')
     os.replace(tmp, out)
     return out, proc.stdout
+
+
+def host_library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC_DIR / f'{name}.cpp').read_bytes())
+    digest.update(' '.join(HOST_CXX_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
+
+
+def build_host_library(name: str) -> Path:
+    """Compile the host source ``csrc/<name>.cpp`` with ``g++`` unless it is
+    built already; return the library's path.  Raises with the compiler's
+    output if it fails."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    cxx = shutil.which('g++')
+    if cxx is None:
+        raise RuntimeError(f'g++ not found: the host compiler is needed to build {name}.cpp')
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    proc = subprocess.run([cxx, *HOST_CXX_FLAGS, '-o', str(tmp), str(CSRC_DIR / f'{name}.cpp')],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'g++ failed for {name}.cpp:\n{proc.stdout}')
+    os.replace(tmp, out)
+    return out
 
 
 def build_libraries(names) -> dict[str, tuple[Path, str, float]]:

@@ -8,6 +8,7 @@ calibration stats dict).  Stats dicts are keyed ``"{kind}_{stat}"`` (e.g.
 
 Every fake-quant goes through the hand-written CUDA kernel's wrappers
 (``ops/kernels/fake_quant.py``); on a CPU tensor they run the plain version.
+Mid-tread sites (``ops/mid_tread.py``) are plain PyTorch and launch none.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from . import aciq
 from .bit_alloc import get_bits_alloc_fixed_target
 from .entropy import shannon_entropy
 from .kernels import fake_quant as fq
+from .mid_tread import mid_tread_quantize_tensor
 from .quant_math import (alpha_to_delta_offset, minmax_delta_offset,
                          qmax_for_bits, quantize_codes)
 from .stats import act_stats, act_stats_per_channel, weight_stats_per_channel
@@ -61,12 +63,6 @@ class QuantConfig:
 
     def target_weight(self) -> float:
         return self.bit_alloc_target_weight if self.bit_alloc_target_weight is not None else self.num_bits
-
-
-_MID_TREAD = ('mid-tread quantization (ops/mid_tread.py) is not ported yet: '
-              'ROADMAP Queue 1 item 12')
-_KLD = ('KLD clipping (calib/kld.py and the native threshold sweep) is not '
-        'ported yet: ROADMAP Queue 1 item 8')
 
 
 def _stat(site_stats: Mapping[str, Any], stat: str, kind: str, device):
@@ -180,11 +176,27 @@ def quantize_activation(x, cfg: QuantConfig, *, half_range: bool = False,
     dev = x.device
 
     if cfg.kld:
-        raise NotImplementedError(_KLD)
+        # TensorRT-style KLD threshold from calibration (int_quantizer.py:
+        # 478-486), through the kernel's reference-CUDA per-tensor mode, as
+        # the reference's native kernel runs it (int_quantizer.py:486)
+        if site_stats is None or 'mean_kld_th' not in site_stats:
+            raise ValueError('KLD clipping needs the scalar/*_kld_th statistics of '
+                             '-sm collect -kld at every site it quantizes')
+        delta, offset = alpha_to_delta_offset(
+            *(_stat(site_stats, k, 'mean', dev) for k in ('kld_th', 'max', 'min', 'mean')),
+            half_range=half)
+        return fq.fake_quant_kernel_semantics_fused(x, delta, offset, cfg.num_bits), aux
 
     if cfg.clipping != 'no':
         if cfg.mtd_quant:
-            raise NotImplementedError(_MID_TREAD)
+            # plain PyTorch: a mid-tread site launches no fake-quant kernel
+            values, ent = mid_tread_quantize_tensor(
+                x, cfg.target_act(), clip=True, sym=not half,
+                per_channel=per_channel_ok, channel_axis=channel_axis,
+                measure_entropy=cfg.measure_entropy)
+            if ent is not None:
+                aux['entropy'] = ent
+            return values, aux
 
         # gemmlowp + ACIQ clipping (int_quantizer.py:327-359)
         if site_stats is not None:
@@ -286,7 +298,12 @@ def quantize_weight(w, cfg: QuantConfig, *, out_axis: int = 0):
     w = w.contiguous()
     if cfg.pcq_w:
         if cfg.mtd_quant:
-            raise NotImplementedError(_MID_TREAD)
+            values, ent = mid_tread_quantize_tensor(
+                w, cfg.target_weight(), clip=False, sym=True, per_channel=True,
+                channel_axis=out_axis, measure_entropy=cfg.measure_entropy)
+            if ent is not None:
+                aux['entropy'] = ent
+            return values, aux
         s = weight_stats_per_channel(w, ['min', 'max'], out_axis=out_axis)
         min_v, max_v = s['min'], s['max']
         bit_alloc = None

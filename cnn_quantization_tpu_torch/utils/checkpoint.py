@@ -1,15 +1,19 @@
-"""torchvision checkpoints -> the port's state dict, with BatchNorm folded
-into the preceding conv/linear at load time.
+"""Checkpoints: torchvision state dicts, with BatchNorm folded into the
+preceding conv/linear at load time, and the JAX package's flat ``.npz``
+parameter trees.
 
-The port's models use torchvision's names and layouts, so this is the JAX
-package's ``utils/torch_import.py`` (``fold_bn_state`` :48-86,
+The port's models use torchvision's names and layouts, so the first is the
+JAX package's ``utils/torch_import.py`` (``fold_bn_state`` :48-86,
 ``load_torch_checkpoint`` :158-167) without the layout conversion; the
-reference folds at run time instead (utils/absorb_bn.py:5-41).
+reference folds at run time instead (utils/absorb_bn.py:5-41).  The second is
+``load_params_npz`` of the JAX package's ``utils/checkpoint.py`` :31-40 (the
+tree its ``save_params_npz`` writes, keys joined by '/'); the CLI converts
+such a tree with ``utils/flax_params.state_dict_from_flax``.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -78,3 +82,16 @@ def load_folded_state_dict(path: str, device) -> dict[str, torch.Tensor]:
     state, _ = fold_bn_state(load_torch_checkpoint(path))
     return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
             for k, v in state.items()}
+
+
+def load_params_npz(path: str) -> dict[str, Any]:
+    """The nested tree the JAX package's ``save_params_npz`` wrote."""
+    out: dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = out
+            parts = key.split('/')
+            for seg in parts[:-1]:
+                node = node.setdefault(seg, {})
+            node[parts[-1]] = data[key]
+    return out

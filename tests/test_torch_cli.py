@@ -1,7 +1,8 @@
 """The port's CLI in-process on the CPU, and the port's isolation from JAX.
 
 The CLI runs the README's ResNet commands at resnet18/64x64 on synthetic
-data; every flag outside this slice exits naming its ROADMAP item.  The
+data; a flag still unported exits naming its ROADMAP item, and a misuse of a
+ported one exits saying what it needs.  The
 isolation test imports every module of the port in a fresh interpreter in
 which ``jax`` cannot be imported, and checks that nothing of the JAX package
 was loaded; a source scan backs it up, ``chip_smoke.py`` included.
@@ -82,19 +83,20 @@ def test_cli_weights_fold_bn_like_jax(cli_env, capsys):
     assert 'random init' not in capsys.readouterr().out
 
 
-# the test ids are kept as they were when both packed flags were still unported
-# ("flag0-item 6", "flag1-item 6"): the flags run now, and what is left to exit
-# for is their misuse, which the JAX CLI silently ignores
+# the test ids are kept as they were when these flags were still unported
+# ("flag0-item 6" ... "flag7-item 14"): the flags run now, and what is left to
+# exit for is their misuse (which the JAX CLI silently ignores or fails on
+# deeper down) or a flag that is still unported
 @pytest.mark.parametrize('flag,item', [
     (['--serving_packed'], '--serving_packed needs --serving_int8'),
     (['--serving_int8', '--serving_packed_stages', '1,2'],
      '--serving_packed_stages needs --serving_packed'),
-    (['-kld'], 'item 8'),
-    (['-mtq'], 'item 12'),
-    (['-ep'], 'item 14'),
-    (['-sf', 'other'], 'item 14'),
-    (['-s'], 'item 14'),
-    (['-p', '5'], 'item 14'),
+    (['-kld'], '-kld quantizes from the thresholds of -sm collect -kld'),
+    (['--mesh_data', '2'], 'item 9'),
+    (['-ct'], 'custom_test needs --order_file or stats'),
+    (['-sm', 'use'], 'no stats at'),
+    (['--data', '/'], 'item 13'),
+    (['--weights', 'model.ckpt'], 'an .npz parameter tree'),
     (['--mesh_model', '2'], 'item 9'),
     (['-j', '8'], 'item 13'),
 ], ids=['flag0-item 6', 'flag1-item 6', 'flag2-item 8', 'flag3-item 12', 'flag4-item 14',

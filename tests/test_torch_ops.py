@@ -273,20 +273,3 @@ def test_quantize_weight_matches(cfg_kw):
     got, _ = q.quantize_weight(oihw(w), q.QuantConfig(**cfg_kw), out_axis=0)
     np.testing.assert_array_equal(got.numpy().transpose(2, 3, 1, 0), np.asarray(want))
 
-
-def test_mid_tread_message_names_its_roadmap_item():
-    """Mid-tread quantization is ROADMAP Queue 1 item 12; the message says so
-    (as the CLI's does) and names no other item."""
-    x = torch.randn(2, 4, 6, 6)
-    with pytest.raises(NotImplementedError, match=r'ROADMAP Queue 1 item 12$'):
-        q.quantize_activation(x, q.QuantConfig(num_bits=4, clipping='laplace', mtd_quant=True))
-
-
-def test_deferred_branches_raise():
-    x = torch.randn(2, 4, 6, 6)
-    with pytest.raises(NotImplementedError, match='mid-tread'):
-        q.quantize_activation(x, q.QuantConfig(num_bits=4, clipping='laplace', mtd_quant=True))
-    with pytest.raises(NotImplementedError, match='mid-tread'):
-        q.quantize_weight(x, q.QuantConfig(num_bits=4, pcq_w=True, mtd_quant=True))
-    with pytest.raises(NotImplementedError, match='KLD'):
-        q.quantize_activation(x, q.QuantConfig(num_bits=4, kld=True), site_stats={})
