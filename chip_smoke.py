@@ -26,6 +26,14 @@ two serving paths run at batch 64:
     the kernel's reference_per_tensor mode), mid-tread quantization,
     stochastic rounding (seeded) and the sweeps and outputs (-ep, -ct, -ms,
     -dd), each run's fake-quant launches by mode against the site table;
+  * the rest of the zoo (phase ``zoo_path``): VGG-16, VGG-16-BN, AlexNet,
+    SqueezeNet-1.0, GoogLeNet, DenseNet-121 and ShuffleNet at 224x224 and
+    Inception-v3 at 299x299, full width, batch 32: the W4A4 headline
+    simulation (weight pass, statistics on one batch, qparam freeze, two
+    frozen batches; fake-quant launches by mode against the site table) and
+    W8A8 serving (scales frozen on one batch, two frozen batches; integer
+    launches by route against the route table), each held end to end against
+    the plain versions on 4 images; VGG-16 mid-tread through the CLI;
   * the throughput bench (``python3 -m cnn_quantization_tpu_torch.bench``):
     ResNet-50 with bfloat16 activations at batch 128 (W4A4 simulation, bf16
     baseline, W8A8 serving, W4A4 serving plain and packed), the batch sweep,
@@ -108,8 +116,15 @@ REPLACES_CONV = 'cnn_quantization_tpu/ops/kernels/int_conv.py:63'
 # and N = 24 (ragged column tiles), and a TMA route case ragged in M, N and K
 GEMM_SHAPES = ((200704, 64, 256), (200704, 256, 64), (3136, 512, 2048), (3136, 2048, 512),
                (64, 2048, 1000), (128, 2048, 1000), (401408, 24, 144), (1605632, 32, 16),
-               (401408, 144, 24), (3001, 272, 1000))
-# (input NCHW, out channels, kernel, stride, padding, groups, per-group scale vector)
+               (401408, 144, 24), (3001, 272, 1000),
+               # the zoo at batch 32: VGG's and AlexNet's first classifiers at M =
+               # 32, SqueezeNet-1.0's conv classifier (13 x 13 rows an image, N =
+               # 1000), DenseNet's 1x1 convs at K = 64 + 32j (blocks 1 and 4),
+               # ShuffleNet's first 1x1 at K = 24 (the mma.sync route)
+               (32, 25088, 4096), (32, 9216, 4096), (5408, 512, 1000), (100352, 96, 128),
+               (1568, 992, 128), (100352, 24, 96))
+# (input NCHW, out channels, kernel, stride, padding, groups, per-group scale
+# vector); kernel and padding an int, or (height, width)
 CONV_SHAPES = {
     '3x3_s1_c64': ((64, 64, 56, 56), 64, 3, 1, 1, 1, False),
     '3x3_s2_c128': ((64, 128, 56, 56), 128, 3, 2, 1, 1, False),
@@ -130,11 +145,36 @@ CONV_SHAPES = {
     'dw_s2_c96_b128': ((128, 96, 112, 112), 96, 3, 2, 1, 96, True),
     # the direct depthwise route's masked path: C no multiple of 16, odd H and W
     'dw_s2_c40_odd': ((32, 40, 29, 27), 40, 3, 2, 1, 40, True),
+    # the zoo at batch 32.  TMA im2col: Inception-v3's non-square filters with
+    # asymmetric padding (C = 128, 192, 384), AlexNet's 5x5, Inception's
+    # unpadded stride-2 3x3 (Mixed_7a), DenseNet's 3x3 with O = 32
+    'inc_1x7_c128': ((32, 128, 17, 17), 128, (1, 7), 1, (0, 3), 1, False),
+    'inc_7x1_c192': ((32, 192, 17, 17), 192, (7, 1), 1, (3, 0), 1, False),
+    'inc_1x3_c384': ((32, 384, 8, 8), 384, (1, 3), 1, (0, 1), 1, False),
+    'inc_3x1_c384': ((32, 384, 8, 8), 384, (3, 1), 1, (1, 0), 1, False),
+    'alex_5x5_c64': ((32, 64, 27, 27), 192, 5, 1, 2, 1, False),
+    'inc_3x3_s2_c192_nopad': ((32, 192, 17, 17), 192, 3, 2, 0, 1, False),
+    'dense_3x3_o32': ((32, 128, 56, 56), 32, 3, 1, 1, 1, False),
+    # the implicit GEMM: C no multiple of 64 (Inception's 5x5 at C = 48 and
+    # Mixed_6a at C = 288, GoogLeNet's 3x3 at C = 16 and 96, SqueezeNet's
+    # expand3x3 at C = 16), ShuffleNet's grouped 1x1 (groups 8, Cg = 96 and 12)
+    'inc_5x5_c48': ((32, 48, 35, 35), 64, 5, 1, 2, 1, False),
+    'inc_3x3_s2_c288': ((32, 288, 35, 35), 384, 3, 2, 0, 1, False),
+    'goog_3x3_c16': ((32, 16, 28, 28), 32, 3, 1, 1, 1, False),
+    'goog_3x3_c96': ((32, 96, 28, 28), 128, 3, 1, 1, 1, False),
+    'sq_3x3_c16': ((32, 16, 54, 54), 64, 3, 1, 1, 1, False),
+    'shuf_g8_1x1_c768': ((32, 768, 14, 14), 192, 1, 1, 0, 8, True),
+    'shuf_g8_1x1_c96_o360': ((32, 96, 28, 28), 360, 1, 1, 0, 8, True),
+    # the direct depthwise route: ShuffleNet's 3x3, stride 1 and 2
+    'shuf_dw_s1_c96': ((32, 96, 28, 28), 96, 3, 1, 1, 96, True),
+    'shuf_dw_s2_c192': ((32, 192, 28, 28), 192, 3, 2, 1, 192, True),
 }
-# the two serving shapes and the bench's int8-rate probe
-TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048), (4096, 16384, 4096))
+# the two serving shapes, the bench's int8-rate probe and VGG's first
+# classifier at batch 32
+TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048), (4096, 16384, 4096), (32, 25088, 4096))
 TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', '3x3_s1_c128_b128', '3x3_s1_c256_b128',
-               '3x3_s1_c512_b128', '1x1_s2_c256', 'dw_s1_c144_b128', 'dw_s2_c96_b128')
+               '3x3_s1_c512_b128', '1x1_s2_c256', 'dw_s1_c144_b128', 'dw_s2_c96_b128',
+               'inc_1x7_c128', 'shuf_g8_1x1_c768')
 REPLACES_INT4 = 'cnn_quantization_tpu/ops/kernels/int4_matmul.py:229'
 # the packed path's int4 GEMM calls at 224x224, batch 64: name -> (M, K, N, A
 # packed, residual, ReLU, out_mode); M = batch * H * W.  'rows' slices the rows
@@ -360,13 +400,18 @@ def gemm_case(m, k, n, qmax, gen, device):
     return a, bt.t(), alpha, beta
 
 
+def pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
 def conv_case(name, qmax, gen, device):
     """A conv of the serving path: int8 codes in channels_last memory, OIHW
     codes with their scales, a scalar or per-group activation scale."""
     shape, o, k, s, p, groups, vector = CONV_SHAPES[name]
     cl = torch.channels_last
     x = int8_codes(shape, qmax, gen, device).contiguous(memory_format=cl)
-    w = int8_codes((o, shape[1] // groups, k, k), qmax, gen, device).contiguous(memory_format=cl)
+    w = int8_codes((o, shape[1] // groups, *pair(k)), qmax, gen,
+                   device).contiguous(memory_format=cl)
     w_scale = (torch.rand(o, generator=gen) * 1e-2 + 1e-3).to(device)
     bias = torch.randn(o, generator=gen).to(device)
     if vector:
@@ -374,7 +419,7 @@ def conv_case(name, qmax, gen, device):
         act_scale = gs.repeat_interleave(shape[1] // groups).to(device)
     else:
         act_scale = torch.full((), 0.05, device=device)
-    return (x, w, w_scale, bias), dict(strides=(s, s), padding=(p, p), groups=groups,
+    return (x, w, w_scale, bias), dict(strides=pair(s), padding=pair(p), groups=groups,
                                        act_scale=act_scale)
 
 
@@ -434,8 +479,8 @@ def int8_kernels_vs_plain(device):
                         bf16_over += bf16_over_one_ulp(got, want)
     for name in CONV_SHAPES:
         shape, o, k, s, p, groups, _ = CONV_SHAPES[name]
-        routes[name] = ic.conv_route(shape[1], o, groups, kernel=(k, k), strides=(s, s),
-                                     padding=(p, p))
+        routes[name] = ic.conv_route(shape[1], o, groups, kernel=pair(k), strides=pair(s),
+                                     padding=pair(p))
         for qmax in (127, 7):
             args, kw = conv_case(name, qmax, gen, device)
             for dt in (torch.float32, torch.bfloat16):
@@ -726,7 +771,11 @@ def int8_timing(device, card):
             gb_per_s=nbytes / ms / 1e6))
     for name in TIMED_CONVS:
         (x, w, w_scale, bias), kw = conv_case(name, 127, gen, device)
-        alpha = kw.pop('act_scale') * w_scale
+        act = kw.pop('act_scale')
+        if act.ndim == 1:
+            # per-group input scales to the output channels, as int8_conv maps them
+            act = act.view(kw['groups'], -1)[:, 0].repeat_interleave(w.shape[0] // kw['groups'])
+        alpha = act * w_scale
         ms = cuda_ms(lambda: ic.int8_conv_dequant(x, w, alpha, bias, **kw))
         host_paced_ms = cuda_ms(lambda: ic.int8_conv_dequant(x, w, alpha, bias, **kw),
                                 head_start=False)
@@ -765,7 +814,8 @@ def int8_timing(device, card):
         nbytes = x.numel() + w.numel() + 4 * out.numel() + 8 * w.shape[0]
         bound_ms, bound_by = int8_bound_ms(ops, nbytes)
         rows['int8_conv'].append(dict(
-            shape=f'{list(x.shape)} * {list(w.shape)} stride {kw["strides"][0]}', out='float32',
+            shape=f'{list(x.shape)} * {list(w.shape)} stride {kw["strides"][0]} padding '
+                  f'{list(kw["padding"])} groups {kw["groups"]}', out='float32',
             ms=ms, host_paced_ms=host_paced_ms, plain_ms=plain_ms, library_ms=library_ms,
             library=library, route=route, old_route_ms=old_route_ms,
             bound_ms=bound_ms, bound_by=bound_by,
@@ -1542,7 +1592,8 @@ def times_counter(counter, n):
 @contextlib.contextmanager
 def cli_instrumented():
     """Counts the fake-quant kernel's launches by mode and records the logits
-    of every forward the CLI makes; the wrapper's own counter is set to 0."""
+    of every forward made (the CLI's, or a phase's own); the wrapper's own
+    counter is set to 0."""
     modes, logits = Counter(), []
     real_launch, real_make_forward = fq.launch, QuantEngine.make_forward
 
@@ -1775,6 +1826,154 @@ def cli_path(device, card, arch='resnet50', size=224, batch=CLI_BATCH):
     return report
 
 
+# ---------------------------------------------------------------- the rest of the zoo
+
+ZOO_ARCHS = ('vgg16', 'vgg16_bn', 'alexnet', 'squeezenet1_0', 'inception_v3', 'googlenet',
+             'densenet121', 'shufflenet')
+ZOO_BATCH = 32
+# VGG-16 mid-tread with bit allocation and the entropy rate (README's fifth
+# experiment), two batches of 32 through the CLI
+ZOO_CLI = ['-a', 'vgg16', '-b', '32', '-pcq_w', '-pcq_a', '--qtype', 'int4', '-qw', 'int4',
+           '-c', 'laplace', '-baa', '-baw', '-bcw', '-bata', '5.3', '-batw', '5.3', '-mtq', '-me',
+           '-ss', '64']
+
+
+def zoo_simulation(device, arch, size, batch):
+    """The W4A4 headline simulation of one architecture: weight pass,
+    statistics on one batch, qparam freeze, two frozen evaluation batches;
+    fake-quant launches by mode against the site table's prediction.
+    Returns (engine, quantized params, qparams, stats, report)."""
+    model, meta = build_model(arch, device=device, seed=0, input_size=size)
+    params = dict(model.state_dict())
+    policy = QuantPolicy(arch=arch, **HEADLINE)
+    eng = QuantEngine(model, policy, meta)
+    sites = discover_sites(model, (1, 3, size, size))
+    batches = list(synthetic_batches(batch, 3, size=size, seed=12345))
+    with cli_instrumented() as (modes, _):
+        t0 = time.perf_counter()
+        params_q = eng.quantize_params(params)
+        weight_modes = Counter(modes)
+        summary = collect_statistics(eng.make_collect(err_bits=4), params, batches[:1])
+        qparams = eng.freeze_qparams(summary, input_shape=(1, size, size, 3))
+        res = evaluate(eng, params_q, batches[1:], stats=summary, qparams=qparams)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    # one launch a weight; three error columns a site for the statistics
+    # batch; one launch a site and evaluation batch, by its frozen mode
+    predicted = (predicted_weight_modes(policy, params) + Counter(affine=3 * len(sites))
+                 + times_counter(predicted_site_modes(policy, sites, summary, frozen=qparams), 2))
+    report = dict(sites=len(sites), frozen_sites=len(qparams), launches=dict(modes),
+                  predicted_launches=dict(predicted), weight_launches=dict(weight_modes),
+                  top1=res['top1'], top5=res['top5'], loss=res['loss'],
+                  images_per_sec=res['images_per_sec'], wall_s=wall)
+    check(sum(modes.values()) > 0 and modes == predicted
+          and fq.fake_quant_fused.launches == sum(predicted.values()),
+          f'{arch} simulation: fake-quant launches {dict(modes)}, predicted {dict(predicted)}')
+    check(np.isfinite([res['top1'], res['top5'], res['loss']]).all(),
+          f'{arch} simulation: non-finite result {res}')
+    return eng, params_q, qparams, summary, report
+
+
+def zoo_serving(device, arch, size, batch):
+    """W8A8 serving of one architecture: weight pass, serving preparation,
+    scales frozen (max) on one batch, two frozen evaluation batches; the
+    integer kernels' launches by route against the route table of the
+    model's modules.  Returns (engine, prepared params, scales, report)."""
+    model, meta = build_model(arch, device=device, seed=0, input_size=size)
+    eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
+    batches = list(synthetic_batches(batch, 3, size=size, seed=12345))
+    per_forward = route_table(model)
+    gemm, conv = ROUTE_COUNTERS['wgmma'][0], ROUTE_COUNTERS['depthwise'][0]   # the wrappers
+    reset_route_launches()
+    gemm.launches = conv.launches = 0
+    t0 = time.perf_counter()
+    sp = eng.prepare_serving_params(eng.quantize_params(dict(model.state_dict())))
+    scales = eng.freeze_serving_scales(sp, batches[:1], max_batches=1, mode='max')
+    res = evaluate(eng, sp, batches[1:], quantized='serving_int8', act_scales=scales)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launched = route_launches()
+    predicted = times(per_forward, 3)   # one calibration forward, two evaluated
+    kinds = Counter(kind for kind, _ in serving_launches(model))
+    report = dict(gemm_per_forward=kinds['int8_gemm'], conv_per_forward=kinds['int8_conv'],
+                  routes_per_forward=dict(per_forward), route_launches=dict(+launched),
+                  predicted_route_launches=dict(predicted),
+                  gemm_launches=gemm.launches, conv_launches=conv.launches,
+                  frozen_sites=len(scales),
+                  vector_scales=sum(1 for v in scales.values() if np.ndim(v) == 1),
+                  top1=res['top1'], top5=res['top5'], loss=res['loss'],
+                  images_per_sec=res['images_per_sec'], wall_s=wall)
+    check(sum(per_forward.values()) > 0 and +launched == predicted
+          and report['gemm_launches'] == 3 * kinds['int8_gemm']
+          and report['conv_launches'] == 3 * kinds['int8_conv'],
+          f'{arch} serving: routes launched {dict(+launched)}, predicted {dict(predicted)}')
+    check(np.isfinite([res['top1'], res['top5'], res['loss']]).all(),
+          f'{arch} serving: non-finite result {res}')
+    return eng, sp, scales, report
+
+
+def zoo_cli(device, size=224, extra=()):
+    """VGG-16 mid-tread through the CLI: fake-quant launches by mode against
+    the site table (mid-tread sites launch none), two batches.  ``extra``
+    arguments follow ``ZOO_CLI`` (a later flag wins)."""
+    arch = 'vgg16'
+    model, _ = build_model(arch, device=device, seed=0, input_size=size)
+    params = dict(model.state_dict())
+    sites = discover_sites(model, (1, 3, size, size))
+    policy = QuantPolicy(arch=arch, qtype='int4', qweight='int4', pcq_weights=True,
+                         pcq_act=True, clipping='laplace', bit_alloc_act=True,
+                         bit_alloc_weight=True, bias_corr_weight=True,
+                         bit_alloc_target_act=5.3, bit_alloc_target_weight=5.3,
+                         mtd_quant=True, measure_entropy=True)
+    del model
+    with tempfile.TemporaryDirectory() as home, contextlib.chdir(home), \
+            mock.patch.dict(os.environ, {'HOME': home}):
+        run = cli_run(ZOO_CLI + list(extra))
+    predicted = predicted_weight_modes(policy, params) + times_counter(
+        predicted_site_modes(policy, sites), 2)
+    res = run['res']
+    report = dict(argv=' '.join(ZOO_CLI + list(extra)), launches=dict(run['modes']),
+                  predicted_launches=dict(predicted), wall_s=run['wall_s'],
+                  images_per_sec=res['images_per_sec'], top1=res['top1'], loss=res['loss'],
+                  avg_entropy=res.get('avg_entropy'))
+    check(run['modes'] == predicted and run['launches'] == sum(predicted.values()) > 0,
+          f'vgg16 CLI: fake-quant launches {dict(run["modes"])}, predicted {dict(predicted)}')
+    check(len(run['logits']) == 2 and all(bool(torch.isfinite(t).all()) for t in run['logits'])
+          and 0.0 < res['avg_entropy'] <= 4.0, f'vgg16 CLI output: {report}')
+    return report
+
+
+def zoo_path(device, card, archs=ZOO_ARCHS, batch=ZOO_BATCH, sizes=None, held=4, cli=()):
+    """The rest of the zoo at full width, each at its meta input size (299 for
+    Inception-v3, else 224; ``sizes`` overrides), seeded weights, synthetic
+    images, batch 32: the W4A4 headline simulation and W8A8 serving, each
+    launch count against its prediction; every kernel call of one simulation
+    and one serving forward of ``held`` images against the plain versions;
+    VGG-16 mid-tread through the CLI (``cli``: extra arguments).  Returns the
+    launches of each kernel."""
+    report, launches = dict(batch=batch, archs={}), Counter()
+    for arch in archs:
+        size = (sizes or {}).get(arch) or (299 if arch == 'inception_v3' else 224)
+        entry = report['archs'][arch] = dict(input_size=size)
+        eng, pq, qparams, stats, entry['simulation'] = zoo_simulation(device, arch, size, batch)
+        launches['fake_quant'] += sum(entry['simulation']['launches'].values())
+        images = next(synthetic_batches(held, 1, size=size, seed=7))[0]
+        entry['simulation_kernel_vs_plain'] = end_to_end_kernel_vs_plain(eng, pq, qparams,
+                                                                         stats, images)
+        del eng, pq, qparams, stats
+        eng, sp, scales, entry['serving'] = zoo_serving(device, arch, size, batch)
+        launches['int8_gemm'] += entry['serving']['gemm_launches']
+        launches['int8_conv'] += entry['serving']['conv_launches']
+        kernels_vs_plain_end_to_end(f'zoo_{arch}_serving_kernels_vs_plain_end_to_end', eng, sp,
+                                    scales, images)
+        del eng, sp, scales
+    cli = report['vgg16_cli'] = zoo_cli(device, (sizes or {}).get('vgg16', 224), cli)
+    launches['fake_quant'] += sum(cli['launches'].values())
+    report['launches'] = dict(launches)
+    emit('zoo_path', card=card, **report)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1822,6 +2021,9 @@ def main():
 
     # ---- main path 1, the rest of the CLI: KLD, mid-tread, stochastic, the sweeps
     cli = cli_path(device, card)
+
+    # ---- the rest of the zoo: W4A4 simulation and W8A8 serving of eight architectures
+    zoo = zoo_path(device, card)
 
     # ---- main path 2: true-int8 serving through the int8 GEMM and conv kernels
     eng, sp, scales, pq, images, srep = drive_serving_path(device)
@@ -1915,6 +2117,7 @@ def main():
         return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
                 'shape': t['shape'], 'kernel_route': t['route'], 'launches': launches,
                 'bench_launches': bench_launches[name],
+                **({'zoo_launches': zoo[name]} if name in zoo else {}),
                 'max_abs_err': max(err, bench_err[name]), 'ms': t['ms'],
                 'old_route_ms': t.get('old_route_ms'),
                 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
@@ -1925,7 +2128,7 @@ def main():
          'source': 'cnn_quantization_tpu_torch/csrc/fake_quant.cu',
          'replaces': REPLACES, 'modes': ['affine', 'stochastic', 'reference_per_tensor'],
          'launches': rep['launches'], 'cli_launches': cli['launches'],
-         'bench_launches': bench_launches['fake_quant'],
+         'bench_launches': bench_launches['fake_quant'], 'zoo_launches': zoo['fake_quant'],
          'max_abs_err': max(max_err, bench_err['fake_quant']), 'ms': ms,
          'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
          'library_ms': library_ms},

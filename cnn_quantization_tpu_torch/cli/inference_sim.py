@@ -1,7 +1,9 @@
 """Experiment CLI, flag-compatible with ``cnn_quantization_tpu/cli/
 inference_sim.py`` (reference inference/inference_sim.py:52-112).
 
-This slice runs the simulation path of the README's ResNet commands:
+It runs every architecture of the registry (``models.available_archs()``,
+the JAX package's 25 names; the input size is the arch's, 299 for
+inception_v3), for example the README's commands:
 
   # W4A4 naive
   python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -b 512 \\
@@ -34,6 +36,12 @@ This slice runs the simulation path of the README's ResNet commands:
   python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -ep -c laplace
   python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 --qtype int4 \\
       -ct --order_file order.json
+  # the rest of the zoo: VGG-16 mid-tread at a 5.3-bit allocation target,
+  # Inception-v3 on W8A8 serving
+  python -m cnn_quantization_tpu_torch.cli.inference_sim -a vgg16 -b 32 -pcq_w -pcq_a \\
+      --qtype int4 -qw int4 -c laplace -baa -baw -bcw -bata 5.3 -batw 5.3 -mtq -me
+  python -m cnn_quantization_tpu_torch.cli.inference_sim -a inception_v3 -b 32 \\
+      --qtype int8 -qw int8 --serving_int8
 
 plus every other flag of the JAX CLI: ``-s``, ``-ra/-rw``, ``-sk``, ``-sf``,
 ``-sba``, ``-bam/-bap/-bata/-batw``, ``-bca``, ``-vcw``, ``-ms``, ``-dd``,
@@ -69,10 +77,12 @@ def build_parser():
     p.add_argument('--data', metavar='DIR', default=os.environ.get('IMAGENET_DIR'),
                    help='path to ImageNet; the port runs synthetic data and exits if '
                         'the path exists (the ImageNet loader is not ported)')
-    p.add_argument('--arch', '-a', default='resnet18')
+    p.add_argument('--arch', '-a', default='resnet18',
+                   help='any name of models.available_archs()')
     p.add_argument('--weights', '-w', default=None,
-                   help='torchvision .pth state dict (BN folded at load), or the JAX '
-                        "package's .npz parameter tree (utils/checkpoint.save_params_npz)")
+                   help="torchvision .pth state dict (BN folded at load where the arch "
+                        "folds), or the JAX package's .npz parameter tree "
+                        '(utils/checkpoint.save_params_npz)')
     p.add_argument('-b', '--batch-size', default=256, type=int)
     p.add_argument('--print-freq', '-p', default=10, type=int)
     p.add_argument('--seed', default=None, type=int,
@@ -81,7 +91,8 @@ def build_parser():
     p.add_argument('--device', default=None, help='cuda (default) or cpu')
     p.add_argument('--dtype', default='float32', help='compute dtype: float32|bfloat16')
     p.add_argument('--input_size', default=None, type=int,
-                   help='override the input crop size (default 224)')
+                   help="override the input crop size (default the arch's: 299 for "
+                        'inception_v3, else 224; VGG and AlexNet are built for it)')
     p.add_argument('--qtype', default=None, help='data type: int[N]')
     p.add_argument('--qweight', '-qw', default='int8')
     p.add_argument('--q_off', action='store_true', help='disable quantization')
@@ -99,7 +110,8 @@ def build_parser():
     p.add_argument('--serving_packed', action='store_true',
                    help='with --serving_int8 at 4-bit activations on a Bottleneck ResNet: '
                         'run the 1x1 convs as int4-packed GEMMs, block boundaries two '
-                        'codes to a byte')
+                        'codes to a byte; any other arch falls back to the plain serving '
+                        'path, as the JAX CLI does')
     p.add_argument('--serving_packed_stages', default=None,
                    help='with --serving_packed: comma-separated 1-based stages to pack '
                         '(e.g. 1,3); the others stay on the plain int8 path')
@@ -215,16 +227,17 @@ def policy_from_args(args):
         rho_weight=args.rho_weight, arch=args.arch)
 
 
-def load_params(args, model):
+def load_params(args, model, meta):
     device = next(model.parameters()).device
     if args.weights and args.weights.endswith('.npz'):
         from ..utils.checkpoint import load_params_npz
         from ..utils.flax_params import state_dict_from_flax
-        state = state_dict_from_flax(load_params_npz(args.weights))
+        state = state_dict_from_flax(load_params_npz(args.weights), meta.arch)
         model.load_state_dict({k: v.to(device) for k, v in state.items()})
     elif args.weights:
-        from ..utils.checkpoint import load_folded_state_dict
-        model.load_state_dict(load_folded_state_dict(args.weights, device))
+        from ..utils.checkpoint import load_torchvision_state_dict
+        model.load_state_dict(load_torchvision_state_dict(args.weights, meta.arch, meta.fold_bn,
+                                                          device))
     else:
         print(f'=> no weights given; random init for {args.arch} '
               '(accuracy numbers will be meaningless)')
@@ -264,8 +277,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     print(f"=> building model '{args.arch}' on {device}")
-    model, meta = build_model(args.arch, dtype=args.dtype, device=device, seed=args.seed or 0)
-    params = load_params(args, model)
+    model, meta = build_model(args.arch, dtype=args.dtype, device=device, seed=args.seed or 0,
+                              input_size=args.input_size)
+    params = load_params(args, model, meta)
     policy = policy_from_args(args)
     if args.q_off:
         policy = QuantPolicy(qtype=None, arch=args.arch)

@@ -456,6 +456,30 @@ def relu(x):
     return torch.relu(x)
 
 
+class Slot(nn.Module):
+    """A parameter-free member of a torchvision ``Sequential`` (a Dropout, a
+    BN folded away) kept so the container's indices, and with them the
+    state-dict names (``features.10``, ``classifier.6``), stay torchvision's;
+    the identity at inference."""
+
+    def forward(self, x, ctx: TapContext):
+        return x
+
+
+class ReLU(Slot):
+    """The ``nn.ReLU`` member of a torchvision ``Sequential`` (untapped)."""
+
+    def forward(self, x, ctx: TapContext):
+        return relu(x)
+
+
+def run_all(mods, x, ctx: TapContext):
+    """Each module of ``mods`` in turn (a torchvision ``Sequential``)."""
+    for m in mods:
+        x = m(x, ctx)
+    return x
+
+
 def init_parameters(model: nn.Module, seed: int):
     """Seeded He-normal init of every conv and linear, in module order, from
     one CPU ``torch.Generator`` (the same weights whatever the device)."""

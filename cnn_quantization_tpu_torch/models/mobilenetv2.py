@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ..engine.context import TapContext
-from .layers import QBatchNorm, QConv, QLinear, SiteNamer
+from .layers import QBatchNorm, QConv, QLinear, SiteNamer, run_all
 
 
 def relu6(x):
@@ -39,12 +39,6 @@ def conv_bn(in_ch, features, *, kernel=3, stride=1, groups=1, fold_bn=True, site
     if not folded:
         mods.append(QBatchNorm(features, site=bn_site))
     return nn.ModuleList(mods)
-
-
-def _run(mods, x, ctx):
-    for m in mods:
-        x = m(x, ctx)
-    return x
 
 
 class InvertedResidual(nn.Module):
@@ -69,7 +63,7 @@ class InvertedResidual(nn.Module):
     def forward(self, x, ctx: TapContext):
         out = x
         for i, m in enumerate(self.conv):
-            out = relu6(_run(m, out, ctx)) if i < self.n_relu else m(out, ctx)
+            out = relu6(run_all(m, out, ctx)) if i < self.n_relu else m(out, ctx)
         return x + out if self.use_res else out
 
 
@@ -95,10 +89,10 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x, ctx: TapContext):
         """``x``: NCHW float32 (channels_last in memory) -> float32 logits."""
-        x = relu6(_run(self.features[0], x, ctx))
+        x = relu6(run_all(self.features[0], x, ctx))
         for block in self.features[1:-1]:
             x = block(x, ctx)
-        x = relu6(_run(self.features[-1], x, ctx))
+        x = relu6(run_all(self.features[-1], x, ctx))
         x = torch.mean(x, dim=(2, 3))
         return self.classifier[1](x, ctx)
 

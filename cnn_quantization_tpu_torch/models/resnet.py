@@ -19,7 +19,7 @@ from torch import nn
 from ..engine.context import Site, TapContext
 from ..ops.kernels.int_matmul import quantize_sym_codes
 from .layers import (PackedQTensor, QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool, QTensor,
-                     SiteNamer, relu)
+                     SiteNamer, relu, run_all)
 
 
 def _dequant_identity(identity, dtype):
@@ -75,12 +75,6 @@ def _downsample(s: BlockSpec):
     return nn.ModuleList(mods)
 
 
-def _run(mods, x, ctx):
-    for m in mods:
-        x = m(x, ctx)
-    return x
-
-
 class BasicBlock(nn.Module):
     def __init__(self, spec: BlockSpec):
         super().__init__()
@@ -109,7 +103,7 @@ class BasicBlock(nn.Module):
         if not fold:
             out = self.bn2(out, ctx)
         if self.spec.has_downsample:
-            identity = _run(self.downsample, x, ctx)
+            identity = run_all(self.downsample, x, ctx)
         return relu(out + _dequant_identity(identity, self.spec.dtype))
 
 
@@ -165,7 +159,7 @@ class Bottleneck(nn.Module):
         if not fold:
             out = self.bn3(out, ctx)
         if self.spec.has_downsample:
-            identity = _run(self.downsample, x, ctx)
+            identity = run_all(self.downsample, x, ctx)
         return relu(out + _dequant_identity(identity, self.spec.dtype))
 
 

@@ -2,9 +2,14 @@
 
 The inverse of the naming in ``cnn_quantization_tpu/utils/torch_import.py``
 (``_flax_path``, :89-102): a numeric path segment merged into its parent
-(``layer1_0``, ``downsample_0``) is split back out (``layer1.0``,
-``downsample.0``); HWIO conv kernels become OIHW, ``[in, out]`` linear kernels
-``[out, in]``; BN leaves (scale/bias/mean/var) take torchvision's names.  A
+(``layer1_0``, ``downsample_0``, VGG's ``features_0``, GoogLeNet's
+``branch2_0``) is split back out (``layer1.0``, ``downsample.0``,
+``features.0``, ``branch2.0``).  Inception-v3's own names carry a trailing
+``_<digits>`` in torchvision itself (``branch5x5_1``, ``branch3x3dbl_2``,
+``branch7x7x3_4``): nothing was merged into them, so for that architecture no
+segment is split (``state_dict_from_flax(..., arch='inception_v3')``).  HWIO
+conv kernels become OIHW, ``[in, out]`` linear kernels ``[out, in]``; BN
+leaves (scale/bias/mean/var) take torchvision's names.  A
 *prepared serving tree* converts the same way: int8 ``kernel`` leaves keep
 their dtype (4-D codes land in channels_last memory, as
 ``prepare_serving_params`` stores them; the s2d stem ``[4, 4, 12, O]`` becomes
@@ -25,6 +30,11 @@ _LEAF_NAMES = {'bias': 'bias', 'scale': 'weight', 'mean': 'running_mean',
                'var': 'running_var', 'w_scale': 'w_scale'}
 
 
+# architectures whose JAX names merged no numeric torch segment: every
+# ``<name>_<digits>`` there is torchvision's own module name
+_UNSPLIT_ARCHS = ('inception_v3',)
+
+
 def _torch_segment(seg: str) -> str:
     """'layer1_0' -> 'layer1.0'; 'conv1' -> 'conv1'."""
     m = re.fullmatch(r'(.+?)((?:_\d+)+)', seg)
@@ -42,12 +52,15 @@ def _walk(tree: Mapping[str, Any], path: tuple[str, ...]):
             yield from _walk(v, path + (k,))
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def state_dict_from_flax(params: Mapping[str, Any],
+                         arch: str | None = None) -> dict[str, torch.Tensor]:
     """Flax params (nested dicts of arrays) -> {torch name: tensor}: float32,
-    apart from int8 kernel codes of a prepared serving tree."""
+    apart from int8 kernel codes of a prepared serving tree.  ``arch`` names
+    the architecture the tree belongs to (it decides which names split)."""
+    split = _torch_segment if arch not in _UNSPLIT_ARCHS else (lambda seg: seg)
     out: dict[str, torch.Tensor] = {}
     for path, leaves in _walk(params, ()):
-        prefix = '.'.join(_torch_segment(seg) for seg in path)
+        prefix = '.'.join(split(seg) for seg in path)
         for name, value in leaves.items():
             v = np.asarray(value)
             codes = name == 'kernel' and v.dtype == np.int8

@@ -1,6 +1,8 @@
 """Shared set-up for the port's parity tests: one architecture with the same
 BN-folded weights and the same input in the JAX package and in the port."""
 
+from unittest import mock
+
 import numpy as np
 import torch
 import jax
@@ -11,6 +13,7 @@ from cnn_quantization_tpu.engine import QuantPolicy as JPolicy
 from cnn_quantization_tpu.engine.context import QuantizeContext as JQuantizeContext
 from cnn_quantization_tpu.engine.qparams import discover_sites as j_discover_sites
 from cnn_quantization_tpu.models import build_model as j_build_model
+from cnn_quantization_tpu.utils import torch_import
 from cnn_quantization_tpu.utils.torch_import import import_arch
 
 from cnn_quantization_tpu_torch.engine import QuantEngine, QuantPolicy, TapContext
@@ -41,11 +44,34 @@ def site_table(sites, nhwc):
     return rows
 
 
-def torchvision_like_state(arch, seed=12345):
+def flatten_inputs_at(arch, size):
+    """The JAX importer's ``FLATTEN_INPUTS`` entry of VGG and AlexNet (the
+    (C, H, W) map their first classifier flattens) at a ``size`` x ``size``
+    input; the package's own table holds the 224x224 maps."""
+    if arch.startswith('vgg'):
+        return {arch.replace('_bn', ''): {'classifier_0': (512, size // 32, size // 32)}}
+    if arch == 'alexnet':
+        h = (size + 4 - 11) // 4 + 1
+        for _ in range(3):
+            h = (h - 3) // 2 + 1
+        return {'alexnet': {'classifier_1': (256, h, h)}}
+    return {}
+
+
+def import_params(arch, state, fold_bn, size=None):
+    """JAX ``import_arch`` of a torchvision-style state built for a ``size``
+    input (None: 224, or 299 for Inception-v3)."""
+    with mock.patch.dict(torch_import.FLATTEN_INPUTS,
+                         flatten_inputs_at(arch, size) if size else {}):
+        return import_arch(arch, state, fold_bn=fold_bn)
+
+
+def torchvision_like_state(arch, seed=12345, size=None):
     """An unfolded torchvision-style checkpoint, as the reference parity tests
     build it: kaiming fan-out convs, randomized BN (their ``randomize_bn``),
-    torch's default uniform init for the classifier."""
-    model, _ = build_model(arch, fold_bn=False, device='cpu')
+    torch's default uniform init for the classifier.  ``size`` is the input
+    the model is built for (it sets VGG's and AlexNet's first classifier)."""
+    model, _ = build_model(arch, fold_bn=False, device='cpu', input_size=size)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
@@ -76,9 +102,11 @@ class Pair:
         kw = {} if dtype == 'float32' else {'dtype': dtype}   # mobilenet_v2 takes none
         self.j_model, self.j_meta = j_build_model(arch, fold_bn=fold_bn, **kw)
         fold_bn = self.j_meta.fold_bn
-        self.j_params = import_arch(arch, torchvision_like_state(arch), fold_bn=fold_bn)
-        self.model, self.meta = build_model(arch, fold_bn=fold_bn, device='cpu', **kw)
-        self.model.load_state_dict(state_dict_from_flax(self.j_params), strict=True)
+        self.j_params = import_params(arch, torchvision_like_state(arch, size=size), fold_bn,
+                                      size)
+        self.model, self.meta = build_model(arch, fold_bn=fold_bn, device='cpu',
+                                            input_size=size, **kw)
+        self.model.load_state_dict(state_dict_from_flax(self.j_params, arch), strict=True)
         self.params = dict(self.model.state_dict())
         self.sites = [s for s, _ in discover_sites(self.model, (1, 3, size, size))]
         self.x = (np.random.RandomState(3).rand(batch, size, size, 3).astype(np.float32)

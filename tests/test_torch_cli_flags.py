@@ -97,8 +97,8 @@ def test_weights_npz_load_the_jax_tree(weights, tmp_path, monkeypatch):
     seen = {}
     real = cli.load_params
 
-    def spy(args, model):
-        seen.update(real(args, model))
+    def spy(args, model, meta):
+        seen.update(real(args, model, meta))
         return dict(seen)
 
     monkeypatch.setattr(cli, 'load_params', spy)

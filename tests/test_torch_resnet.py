@@ -103,8 +103,9 @@ def test_bottleneck_headline_resnet50(r50):
 
 
 def test_non_ported_arch_raises():
-    with pytest.raises(ValueError, match='Queue 1 item 7'):
-        build_model('vgg16', device='cpu')
+    """Every architecture of the zoo is registered; a name outside it raises."""
+    with pytest.raises(ValueError, match="unknown arch 'vgg15'"):
+        build_model('vgg15', device='cpu')
 
 
 def test_default_device_is_the_card(monkeypatch):

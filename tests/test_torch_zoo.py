@@ -227,10 +227,14 @@ def test_deep_variants_site_tables_equal_jax(arch):
 
 
 def test_registry_lists_what_it_builds():
+    """The whole zoo is registered (the 15 architectures beyond the ResNet
+    family and MobileNet-v2 are held to JAX in ``tests/test_torch_zoo_*.py``);
+    an unknown arch raises naming every registered one."""
     archs = available_archs()
-    assert set(SMALL + DEEP + ('resnet18', 'resnet50', 'mobilenet_v2')) == set(archs)
-    with pytest.raises(ValueError, match='Queue 1 item 7') as err:
-        build_model('densenet121', device='cpu')
+    assert set(SMALL + DEEP + ('resnet18', 'resnet50', 'mobilenet_v2')) < set(archs)
+    assert len(archs) == 25
+    with pytest.raises(ValueError, match="unknown arch 'densenet100'") as err:
+        build_model('densenet100', device='cpu')
     assert all(a in str(err.value) for a in archs)
     with pytest.raises(ValueError, match="'float32' or 'bfloat16'"):
         build_model('resnet18', dtype='float16', device='cpu')
