@@ -34,6 +34,25 @@ two serving paths run at batch 64:
     W8A8 serving (scales frozen on one batch, two frozen batches; integer
     launches by route against the route table), each held end to end against
     the plain versions on 4 images; VGG-16 mid-tread through the CLI;
+  * the ImageNet loader's ``.npz`` route (phase ``data_path``): a
+    preprocessed eval set of 256 seeded 224x224 images, ``inference_sim
+    --data <npz>`` in process on ResNet-50, batch 64, W4A4 headline recipe,
+    ``-sm collect`` then ``-sm use``: launches by mode against the site table,
+    results and logits equal to ``evaluate`` on the same arrays; the
+    class-folder route without PIL exits naming it;
+  * the auxiliary tools (phase ``tools_path``): the k-means CLI on ResNet-50
+    (4 bits, quantize and clip, with and without bias correction; at most 16
+    values a leaf) and its ``.npz`` through ``inference_sim --weights``;
+    ``golden_repro --smoke`` (six configs) and its ``w4a4_headline`` at
+    224x224, batch 64; ``fake_quant_ste`` at ``[64,256,56,56]``, forward and
+    gradient against the plain versions;
+  * the parallel layer (phase ``parallel_path``): a one-rank NCCL group on a
+    1x1 mesh runs ``evaluate_sharded`` (W4A4 frozen simulation, W8A8 serving)
+    equal to ``evaluate`` bit for bit; two processes over gloo on the one card
+    (``chip_smoke.py --parallel-worker ...``), meshes data=2/model=1 and
+    data=1/model=2, run W8A8 serving with frozen scales, logits equal to one
+    process's bit for bit, each rank's int8 launches by route against the
+    route table of its sliced shapes;
   * the throughput bench (``python3 -m cnn_quantization_tpu_torch.bench``):
     ResNet-50 with bfloat16 activations at batch 128 (W4A4 simulation, bf16
     baseline, W8A8 serving, W4A4 serving plain and packed), the batch sweep,
@@ -52,8 +71,10 @@ to the model's modules, and ``int8_timing``/``int4_timing`` time each timed
 shape on its route and on the mma.sync route beside it.
 
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
-and ``{"ok": true, "device": ...}``.  Any failed check exits non-zero before
-those lines.  Without a CUDA device, or without the rest of the repository,
+(each path's launches; the slice-9 phases' as ``data_launches``,
+``tools_launches`` and ``parallel_launches``) and ``{"ok": true, "device":
+...}``.  Any failed check exits non-zero before those lines.  Without a CUDA
+device, or without the rest of the repository,
 it exits non-zero and prints no result.
 """
 
@@ -78,7 +99,8 @@ import torch
 from cnn_quantization_tpu_torch import bench
 from cnn_quantization_tpu_torch.calib.calibrator import (collect_statistics, load_stats,
                                                          save_stats)
-from cnn_quantization_tpu_torch.data.synthetic import synthetic_batches
+from cnn_quantization_tpu_torch.data.synthetic import (IMAGENET_MEAN, IMAGENET_STD,
+                                                        synthetic_batches)
 from cnn_quantization_tpu_torch.engine import QuantEngine, QuantPolicy
 from cnn_quantization_tpu_torch.engine.evaluate import evaluate
 from cnn_quantization_tpu_torch.engine.context import QuantizeContext, ServingInt8Context
@@ -1974,6 +1996,448 @@ def zoo_path(device, card, archs=ZOO_ARCHS, batch=ZOO_BATCH, sizes=None, held=4,
     return launches
 
 
+# ---------------------------------------------------------------- slice 9: data, parallel, tools
+
+DATA_IMAGES = 256
+
+
+def write_npz_eval_set(path, n, size, seed=2024):
+    """A preprocessed eval set as ``data/imagenet.make_loader`` reads it:
+    ``images`` [n, size, size, 3] float32 (normalized, drawn like the
+    synthetic batches) and ``labels`` [n]."""
+    rng = np.random.RandomState(seed)
+    images = np.empty((n, size, size, 3), np.float32)
+    for i in range(0, n, 64):   # in chunks: no float64 copy of the whole set
+        chunk = rng.rand(min(64, n - i), size, size, 3).astype(np.float32)
+        images[i:i + len(chunk)] = (chunk - IMAGENET_MEAN) / IMAGENET_STD
+    labels = rng.randint(0, 1000, n).astype(np.int32)
+    np.savez(path, images=images, labels=labels)
+    return os.path.getsize(path)
+
+
+def data_path(device, card, arch='resnet50', size=224, batch=64, n_images=DATA_IMAGES):
+    """The ImageNet loader's ``.npz`` route through the CLI: a preprocessed
+    eval set of ``n_images`` seeded images, ``inference_sim --data <npz>``
+    in process with the W4A4 headline recipe, ``-sm collect`` then ``-sm
+    use``; every fake-quant launch by mode against the site table; top-1,
+    top-5, loss and the logits of every batch equal to the same arrays fed to
+    ``evaluate`` directly with the CLI's statistics; the class-folder route
+    on a machine without PIL exits naming PIL and the ``.npz`` route."""
+    from cnn_quantization_tpu_torch.cli import inference_sim
+    from cnn_quantization_tpu_torch.data.imagenet import load_npz_batches
+    model, meta = build_model(arch, device=device, seed=0)
+    params = dict(model.state_dict())
+    sites = discover_sites(model, (1, 3, size, size))
+    policy = QuantPolicy(arch=arch, **HEADLINE)
+    n_batches = -(-n_images // batch)
+    report = dict(arch=arch, input_size=size, batch=batch, images=n_images, sites=len(sites))
+    with tempfile.TemporaryDirectory() as home, contextlib.chdir(home), \
+            mock.patch.dict(os.environ, {'HOME': home}):
+        npz = os.path.join(home, 'val.npz')
+        t0 = time.perf_counter()
+        report['npz_bytes'] = write_npz_eval_set(npz, n_images, size)
+        report['npz_write_s'] = time.perf_counter() - t0
+        argv = ['-a', arch, '--input_size', str(size), '-b', str(batch), '--data', npz,
+                '-pcq_w', '-pcq_a', '--qtype', 'int4', '-qw', 'int4', '-c', 'laplace',
+                '-baa', '-baw', '-bcw']
+        collect = cli_run(argv + ['-sm', 'collect'])
+        # collect mode runs no weight pass: three error-column launches a site and batch
+        predicted = Counter(affine=3 * len(sites) * n_batches)
+        check(collect['modes'] == predicted and collect['launches'] == sum(predicted.values()),
+              f'data_path collect: launches {dict(collect["modes"])}, predicted {dict(predicted)}')
+        check(not any('using synthetic data' in ln for ln in collect['lines']),
+              'data_path: the CLI fell back to synthetic data')
+        use = cli_run(argv + ['-sm', 'use'])
+        stats = load_stats(os.path.join(home, 'mxt-sim-tpu', 'statistics', 'per_channel',
+                                        f'{arch}.npz'))
+        engine = QuantEngine(model, policy, meta)
+        qparams = engine.freeze_qparams(stats, input_shape=(1, size, size, 3))
+        predicted_use = predicted_weight_modes(policy, params) + times_counter(
+            predicted_site_modes(policy, sites, stats, frozen=qparams), n_batches)
+        check(use['modes'] == predicted_use and use['launches'] == sum(predicted_use.values())
+              and len(qparams) == len(sites),
+              f'data_path use: launches {dict(use["modes"])}, predicted {dict(predicted_use)}')
+        # the same arrays through evaluate directly
+        with cli_instrumented() as (_, logits):
+            batches = load_npz_batches(npz, batch)
+            direct = evaluate(engine, engine.quantize_params(params), batches, stats=stats,
+                              qparams=qparams)
+        res = use['res']
+        same = (len(logits) == len(use['logits']) == n_batches
+                and all(torch.equal(a, b) for a, b in zip(logits, use['logits'])))
+        report.update(collect=dict(launches=dict(collect['modes']), wall_s=collect['wall_s']),
+                      use=dict(launches=dict(use['modes']), wall_s=use['wall_s'],
+                               images_per_sec=res['images_per_sec']),
+                      top1=res['top1'], top5=res['top5'], loss=res['loss'],
+                      direct=dict(top1=direct['top1'], top5=direct['top5'], loss=direct['loss']),
+                      logits_equal_direct=same)
+        check(same and all(res[k] == round(direct[k], 4) for k in ('top1', 'top5', 'loss'))
+              and np.isfinite([res['top1'], res['top5'], res['loss']]).all(),
+              f"data_path: CLI {res} against evaluate {direct}, logits equal {same}")
+        # the class-folder route without PIL: one class folder, one file
+        os.makedirs(os.path.join(home, 'tree', 'val', 'n01'))
+        with open(os.path.join(home, 'tree', 'val', 'n01', 'a.png'), 'wb') as f:
+            f.write(b'\x89PNG\r\n')
+        with mock.patch.dict(sys.modules, {'PIL': None}):
+            try:
+                inference_sim.main(argv[:6] + ['--data', os.path.join(home, 'tree'), '-j', '2'])
+                message = None
+            except SystemExit as e:
+                message = str(e)
+        report['folder_without_pil_exit'] = message
+        check(message is not None and 'PIL' in message and '.npz' in message,
+              f'data_path: the class-folder route without PIL: {message}')
+    report['launches'] = collect['launches'] + use['launches']
+    emit('data_path', card=card, **report)
+    return report
+
+
+def serving_routes_from_params(model, params):
+    """Launches by route of one plain serving forward, from the model's
+    modules with the output channels of ``params`` (a rank's shard: a sliced
+    conv computes its slice of outputs)."""
+    table = Counter()
+    for name, m in model.named_modules():
+        if not isinstance(m, (QConv, QLinear)):
+            continue
+        w = params[f'{name}.weight']
+        if isinstance(m, QLinear):
+            table[im.gemm_route(w.shape[1])] += 1
+        elif m.in_ch == 3 and w.dtype != torch.int8:
+            continue   # the float stem
+        elif (tuple(w.shape[2:]), m.strides, m.padding, m.groups) == ((1, 1), (1, 1), (0, 0), 1):
+            table[im.gemm_route(m.in_ch)] += 1
+        else:
+            in_ch = w.shape[1] * m.groups
+            table[ic.conv_route(in_ch, w.shape[0], m.groups, kernel=tuple(w.shape[2:]),
+                                strides=m.strides if in_ch != 12 else (1, 1),
+                                padding=m.padding if in_ch != 12 else (0, 0))] += 1
+    return table
+
+
+@contextlib.contextmanager
+def route_calls():
+    """Calls of the int8 wrappers by the route their shapes take (on the
+    card each is one launch; on the CPU the plain versions run, and these
+    calls stand in for the launches)."""
+    calls = Counter()
+    gemm, conv = im.int8_matmul_dequant, ic.int8_conv_dequant
+
+    def gemm_call(a, b, *args, **kw):
+        calls[im.gemm_route(a.shape[1])] += 1
+        return gemm(a, b, *args, **kw)
+
+    def conv_call(x, w, *args, strides=(1, 1), padding=(0, 0), groups=1, **kw):
+        calls[ic.conv_route(x.shape[1], w.shape[0], groups, kernel=tuple(w.shape[2:]),
+                            strides=tuple(strides), padding=tuple(padding))] += 1
+        return conv(x, w, *args, strides=strides, padding=padding, groups=groups, **kw)
+
+    # the stand-ins share the wrappers' attributes: the kernels count their
+    # launches on the module-level name, which is the stand-in meanwhile
+    gemm_call.__dict__, conv_call.__dict__ = gemm.__dict__, conv.__dict__
+    with mock.patch.object(im, 'int8_matmul_dequant', gemm_call), \
+            mock.patch.object(ic, 'int8_conv_dequant', conv_call):
+        yield calls
+
+
+PARALLEL_BATCHES = 2
+
+
+def parallel_setup(device, arch, size, batch, s2d_stem):
+    """The W8A8 serving set-up every run of ``parallel_path`` shares: seeded
+    weights, prepared int8 params, scales frozen on one batch, and the
+    evaluation batches."""
+    model, meta = build_model(arch, device=device, seed=0)
+    eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
+    sp = eng.prepare_serving_params(eng.quantize_params(dict(model.state_dict())),
+                                    s2d_stem=s2d_stem)
+    batches = list(synthetic_batches(batch, PARALLEL_BATCHES + 1, size=size, seed=99))
+    scales = eng.freeze_serving_scales(sp, batches[:1], max_batches=1)
+    return model, eng, sp, scales, batches[1:]
+
+
+def parallel_worker(argv):
+    """One rank of ``parallel_path`` (b): ``chip_smoke.py --parallel-worker
+    <init> <world> <rank> <data> <model> <device> <arch> <size> <batch> <out>``.
+    W8A8 serving with frozen scales on the (data, model) mesh of a gloo
+    group, with the space-to-depth (all-integer) stem and with the float
+    stem; writes the gathered logits, the counts and the int8 launches by
+    route (kernel counters and calls by shape)."""
+    from cnn_quantization_tpu_torch.parallel import make_mesh, shard_params
+    from cnn_quantization_tpu_torch.parallel.distributed import init_distributed
+    from cnn_quantization_tpu_torch.parallel.eval_parallel import evaluate_sharded
+    init, world, rank, data, model_axis, dev, arch, size, batch, out = argv
+    device = torch.device(dev)
+    if device.type == 'cpu':
+        torch.set_num_threads(1)
+    init_distributed(init, int(world), int(rank), backend='gloo')
+    mesh = make_mesh(data=int(data), model=int(model_axis))
+    result = {}
+    for stem, s2d in (('s2d_stem', True), ('float_stem', False)):
+        model, eng, sp, scales, batches = parallel_setup(device, arch, int(size), int(batch),
+                                                         s2d)
+        reset_route_launches()
+        with route_calls() as calls:
+            t0 = time.perf_counter()
+            res = evaluate_sharded(eng, sp, batches, mesh=mesh, quantized='serving_int8',
+                                   act_scales=scales, keep_logits=True)
+            wall = time.perf_counter() - t0
+        table = serving_routes_from_params(model, shard_params(sp, mesh, model))
+        result[stem] = dict(top1=res['top1'], top5=res['top5'], loss=res['loss'],
+                            logits=res['logits'].cpu().numpy(), wall_s=wall,
+                            launches=dict(+route_launches()), calls=dict(calls),
+                            predicted=dict(times(table, len(batches))))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(out, 'wb') as f:
+        np.save(f, np.array(result, dtype=object), allow_pickle=True)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def parallel_path(device, card, arch='resnet50', size=224, batch=64):
+    """The parallel layer: (a) in process, a process group of one rank (NCCL
+    on the card, gloo on the CPU) on a 1x1 mesh runs ``evaluate_sharded`` on
+    the W4A4 frozen simulation and on W8A8 serving with frozen scales, and
+    its counts and logits equal ``evaluate``'s bit for bit; (b) two
+    processes over gloo on the one device, meshes data=2/model=1 and
+    data=1/model=2, run W8A8 serving with frozen scales, and their gathered
+    logits equal the single process's bit for bit with the space-to-depth
+    stem (every conv integer; the float stem's cuDNN algorithm may change
+    with the sliced shapes, so that variant is reported, not held), each
+    rank's int8 launches by route equal to the route table of its sliced
+    shapes.  No multi-GPU speed is measured: there is one card."""
+    import subprocess
+    import torch.distributed as dist
+    from cnn_quantization_tpu_torch.parallel import make_mesh
+    from cnn_quantization_tpu_torch.parallel.eval_parallel import evaluate_sharded
+    report = dict(arch=arch, input_size=size, batch=batch, batches=PARALLEL_BATCHES)
+    launches = Counter()
+    fq.fake_quant_fused.launches = 0
+
+    # (a) one rank, in process
+    backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    dist.init_process_group(backend, init_method=f'tcp://127.0.0.1:{_free_port()}',
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        model, meta = build_model(arch, device=device, seed=0)
+        params = dict(model.state_dict())
+        eng = QuantEngine(model, QuantPolicy(arch=arch, **HEADLINE), meta)
+        batches = list(synthetic_batches(batch, PARALLEL_BATCHES + 1, size=size, seed=98))
+        pq = eng.quantize_params(params)
+        stats = collect_statistics(eng.make_collect(), pq, batches[:1])
+        qparams = eng.freeze_qparams(stats, input_shape=(1, size, size, 3))
+        sites = discover_sites(model, (1, 3, size, size))
+        runs = {}
+        for name, run_eng, run_params, kw in (
+                ('w4a4_frozen', eng, pq, dict(qparams=qparams)),
+                ('w8a8_serving', None, None, None)):
+            if run_eng is None:
+                _, run_eng, run_params, scales, _ = parallel_setup(device, arch, size, batch, False)
+                kw = dict(quantized='serving_int8', act_scales=scales)
+            with cli_instrumented() as (_, single_logits):
+                single = evaluate(run_eng, run_params, batches[1:], **kw)
+            fq.fake_quant_fused.launches = 0
+            reset_route_launches()
+            t0 = time.perf_counter()
+            sharded = evaluate_sharded(run_eng, run_params, batches[1:], mesh=mesh,
+                                       keep_logits=True, **kw)
+            wall = time.perf_counter() - t0
+            counted = Counter(fake_quant=fq.fake_quant_fused.launches, **route_launches())
+            same = torch.equal(sharded['logits'], torch.cat(single_logits))
+            runs[name] = dict(top1=sharded['top1'], top5=sharded['top5'], loss=sharded['loss'],
+                              logits_equal=same, wall_s=wall,
+                              images_per_sec=sharded['images_per_sec'], launches=dict(+counted))
+            check(same and all(sharded[k] == single[k] for k in ('top1', 'top5', 'loss')),
+                  f'parallel_path (a) {name}: sharded {runs[name]} against evaluate {single}')
+            launches += counted
+        want_fq = len(sites) * PARALLEL_BATCHES
+        want_int8 = times(route_table(model), PARALLEL_BATCHES)
+        check(runs['w4a4_frozen']['launches'].get('fake_quant') == want_fq
+              and Counter({k: v for k, v in runs['w8a8_serving']['launches'].items()})
+              == want_int8, f'parallel_path (a) launches {runs}, predicted fake-quant '
+              f'{want_fq}, int8 {dict(want_int8)}')
+        report['one_rank'] = dict(backend=backend, **runs)
+    finally:
+        dist.destroy_process_group()
+    del eng, pq, stats, qparams, model
+
+    # (b) two processes over gloo on the one device
+    single = {}
+    for stem, s2d in (('s2d_stem', True), ('float_stem', False)):
+        _, eng8, sp, scales, eval_batches = parallel_setup(device, arch, size, batch, s2d)
+        with cli_instrumented() as (_, logits):
+            res = evaluate(eng8, sp, eval_batches, quantized='serving_int8', act_scales=scales)
+        single[stem] = dict(res, logits=torch.cat(logits).cpu().numpy())
+    del eng8, sp
+    report['two_ranks'] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mesh_name, (data, model_axis) in (('data2_model1', (2, 1)),
+                                               ('data1_model2', (1, 2))):
+            init = f'tcp://127.0.0.1:{_free_port()}'
+            outs = [os.path.join(tmp, f'{mesh_name}_{r}.npy') for r in range(2)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--parallel-worker', init, '2',
+                 str(r), str(data), str(model_axis), str(device), arch, str(size), str(batch),
+                 outs[r]], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for r in range(2)]
+            try:
+                for p in procs:
+                    _, err = p.communicate(timeout=600)
+                    check(p.returncode == 0, f'parallel_path rank failed:\n{err[-3000:]}')
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+            wall = time.perf_counter() - t0
+            entry = report['two_ranks'][mesh_name] = dict(wall_s_both_ranks=wall)
+            for r, path in enumerate(outs):
+                got = np.load(path, allow_pickle=True).item()
+                for stem, g in got.items():
+                    want = single[stem]
+                    equal = bool(np.array_equal(g['logits'], want['logits']))
+                    counted = g['launches'] if device.type == 'cuda' else g['calls']
+                    rank_entry = dict(
+                        logits_equal=equal, top1=g['top1'], top5=g['top5'], loss=g['loss'],
+                        wall_s=g['wall_s'], launches=counted, predicted=g['predicted'],
+                        max_abs_logit_diff=float(np.abs(g['logits'] - want['logits']).max()))
+                    entry[f'rank{r}_{stem}'] = rank_entry
+                    check(counted == g['predicted'] and sum(counted.values()) > 0,
+                          f'parallel_path {mesh_name} rank {r} {stem}: launches {counted}, '
+                          f"the sliced route table predicts {g['predicted']}")
+                    if stem == 's2d_stem':
+                        check(equal and all(g[k] == want[k] for k in ('top1', 'top5')),
+                              f'parallel_path {mesh_name} rank {r}: {rank_entry} against '
+                              f"the single process's {want['top1']}, {want['top5']}")
+                    if device.type == 'cuda':
+                        launches.update(g['launches'])
+    report['launches'] = dict(launches)
+    emit('parallel_path', card=card, **report)
+    return report
+
+
+def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
+               ste_shape=STAGE1_ACT):
+    """The auxiliary tools at full width: (1) k-means of ResNet-50's weights
+    to 4 bits, ``quantize`` and ``clip``, with and without bias correction
+    (seconds, inertia, distinct values per leaf, at most 16 without the
+    correction), the CLI's ``.npz`` read back through ``inference_sim
+    --weights``; (2) ``golden_repro --smoke`` (all six configs) and its
+    ``w4a4_headline`` at ``golden_size`` and batch ``golden_batch`` on
+    synthetic data, fake-quant launches counted; (3) ``fake_quant_ste`` at
+    ``ste_shape`` per channel: forward equal to the plain version, gradient
+    equal to the plain clamp mask."""
+    from cnn_quantization_tpu_torch.cli import golden_repro
+    from cnn_quantization_tpu_torch.cli import kmeans_quantization as km
+    from cnn_quantization_tpu_torch.ops.ste import fake_quant_ste, fake_quant_ste_mask
+    from cnn_quantization_tpu_torch.utils.checkpoint import load_params_npz
+    from cnn_quantization_tpu_torch.utils.flax_params import state_dict_from_flax
+    report = dict(arch=arch)
+    launches = Counter()
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == 'cuda' else (lambda: None)
+
+    # (1) the k-means CLI, both tasks, each with and without bias correction
+    kmeans = {}
+    with tempfile.TemporaryDirectory() as home, contextlib.chdir(home), \
+            mock.patch.dict(os.environ, {'HOME': home}):
+        dev_args = ['--device', 'cpu'] if device.type == 'cpu' else []
+        for task in ('quantize', 'clip'):
+            with contextlib.redirect_stdout(io.StringIO()):
+                # one directory a task: both name their file <arch>_kmeans4bit.npz
+                out = km.run(km.build_parser().parse_args(
+                    ['-a', arch, '-bits', '4', '-t', task, '--out_dir', os.path.join(home, task)]
+                    + dev_args))
+            for key, r in out.items():
+                entry = kmeans[task + ('_bcorr' if key == 'bcorr' else '')] = dict(
+                    seconds=r['seconds'], leaves=len(r['inertia']),
+                    inertia=sum(r['inertia'].values()))
+                if task == 'quantize' and key == 'plain':
+                    distinct = {k: int(torch.unique(r['params'][k]).numel())
+                                for k in r['inertia']}
+                    entry.update(max_distinct_per_leaf=max(distinct.values()),
+                                 min_distinct_per_leaf=min(distinct.values()))
+                    check(len(distinct) > 0 and max(distinct.values()) <= 16,
+                          f'k-means: distinct values per leaf {distinct}')
+                    quantized, path = r['params'], r['path']
+        report['kmeans'] = kmeans
+        saved = state_dict_from_flax(load_params_npz(path), arch)
+        check(all(torch.equal(saved[k], quantized[k].cpu()) for k in saved),
+              'k-means CLI: the saved .npz differs from what it quantized')
+        del quantized
+        run = cli_run(['-a', arch, '-b', '8', '--subset', '8', '--qtype', 'int8', '-qw', 'int8',
+                       '--weights', path, '--input_size', str(golden_size)])
+        check(not any('random init' in ln for ln in run['lines'])
+              and np.isfinite(run['res']['loss']), 'k-means .npz through --weights')
+        report['kmeans_weights_run'] = dict(wall_s=run['wall_s'], loss=run['res']['loss'],
+                                            launches=dict(run['modes']))
+        launches['fake_quant'] += run['launches']
+
+        # (2) the golden runbook
+        golden = {}
+        for name, argv in (('smoke', ['--smoke']),
+                           ('w4a4_headline', ['--only', 'w4a4_headline', '-b', str(golden_batch),
+                                              '--input_size', str(golden_size),
+                                              '--subset', str(golden_batch)])):
+            out = os.path.join(home, f'golden_{name}.json')
+            with cli_instrumented() as (modes, logits), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                rc = golden_repro.main(argv + dev_args + ['--out', out])
+                sync()
+                wall = time.perf_counter() - t0
+            with open(out) as f:
+                rows = json.load(f)
+            golden[name] = dict(rc=rc, wall_s=wall, configs=[r['config'] for r in rows],
+                                launches=dict(modes), forwards=len(logits),
+                                rows=[{k: r[k] for k in ('config', 'top1', 'top5', 'verdict')}
+                                      for r in rows])
+            check(rc == 0 and all(np.isfinite([r['top1'], r['top5']]).all() for r in rows)
+                  and sum(modes.values()) == fq.fake_quant_fused.launches > 0
+                  and all(bool(torch.isfinite(t).all()) for t in logits),
+                  f'golden_repro {name}: {golden[name]}')
+            launches['fake_quant'] += fq.fake_quant_fused.launches
+        check(golden['smoke']['configs'] == [g[0] for g in golden_repro.GOLDEN],
+              f"golden smoke ran {golden['smoke']['configs']}")
+        report['golden'] = golden
+
+    # (3) the STE at the stage-1 shape, per channel
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(ste_shape, generator=gen).to(device) \
+        .contiguous(memory_format=torch.channels_last)
+    delta, offset, qmax = per_channel_params(x, 1, gen)
+    x.requires_grad_(True)
+    grad_out = torch.randn(ste_shape, generator=gen).to(device) \
+        .contiguous(memory_format=torch.channels_last)
+    fq.fake_quant_fused.launches = 0
+    out = fake_quant_ste(x, delta, offset, qmax, channel_dim=1)
+    out.backward(grad_out)
+    ste_launches = fq.fake_quant_fused.launches
+    want = fq.fake_quant_fused_plain(x.detach(), delta, offset, qmax, channel_dim=1)
+    mask = fake_quant_ste_mask(x.detach(), delta, offset, channel_dim=1)
+    fwd_err = float((out.detach() - want).abs().max())
+    grad_equal = bool(torch.equal(x.grad, mask * grad_out))
+    xd = x.detach()
+    report['ste'] = dict(
+        shape=list(ste_shape), launches=ste_launches, forward_max_abs_err=fwd_err,
+        grad_equal_plain_mask=grad_equal, inside_share=float(mask.mean()),
+        forward_ms=cuda_ms(lambda: fake_quant_ste(xd, delta, offset, qmax, channel_dim=1))
+        if device.type == 'cuda' else None)
+    check(fwd_err == 0.0 and grad_equal and 0.0 < float(mask.mean()) < 1.0
+          and ste_launches == 1,
+          f"fake_quant_ste: {report['ste']}")
+    launches['fake_quant'] += ste_launches
+    report['launches'] = dict(launches)
+    emit('tools_path', card=card, **report)
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2024,6 +2488,11 @@ def main():
 
     # ---- the rest of the zoo: W4A4 simulation and W8A8 serving of eight architectures
     zoo = zoo_path(device, card)
+
+    # ---- slice 9: the ImageNet loader's .npz route, the tools, the parallel layer
+    data = data_path(device, card)
+    tools = tools_path(device, card)
+    par = parallel_path(device, card)
 
     # ---- main path 2: true-int8 serving through the int8 GEMM and conv kernels
     eng, sp, scales, pq, images, srep = drive_serving_path(device)
@@ -2110,6 +2579,23 @@ def main():
     timing['int4_gemm'] = int4_timing(device, card)
     copy = stream_copy_timing(device, card)
 
+    # launches of the slice-9 phases, each phase counted from 0: the .npz
+    # CLI run, the tools (k-means read-back, golden runbook, STE) and the
+    # parallel layer (one rank in process; each of the two-rank runs' ranks)
+    par_routes = Counter(par['launches'])
+    slice9 = {
+        'fake_quant': dict(data_launches=data['launches'],
+                           tools_launches=tools['launches'].get('fake_quant', 0),
+                           parallel_launches=par_routes['fake_quant']),
+        'int8_gemm': dict(data_launches=0, tools_launches=0,
+                          parallel_launches=par_routes['wgmma'] + par_routes['mma_sync']),
+        'int8_conv': dict(data_launches=0, tools_launches=0,
+                          parallel_launches=par_routes['depthwise'] + par_routes['im2col_wgmma']
+                          + par_routes['implicit_gemm']),
+        'int4_gemm': dict(data_launches=0, tools_launches=0, parallel_launches=0),
+        'stream_copy': dict(data_launches=0, tools_launches=0, parallel_launches=0),
+    }
+
     def int8_row(name, source, replaces, launches, err):
         # the kernels line carries the heaviest shape; the others are in the
         # timing phases.  kernel_route: the hand-written route that shape takes
@@ -2117,7 +2603,7 @@ def main():
         return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
                 'shape': t['shape'], 'kernel_route': t['route'], 'launches': launches,
                 'bench_launches': bench_launches[name],
-                **({'zoo_launches': zoo[name]} if name in zoo else {}),
+                **({'zoo_launches': zoo[name]} if name in zoo else {}), **slice9[name],
                 'max_abs_err': max(err, bench_err[name]), 'ms': t['ms'],
                 'old_route_ms': t.get('old_route_ms'),
                 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
@@ -2129,7 +2615,7 @@ def main():
          'replaces': REPLACES, 'modes': ['affine', 'stochastic', 'reference_per_tensor'],
          'launches': rep['launches'], 'cli_launches': cli['launches'],
          'bench_launches': bench_launches['fake_quant'], 'zoo_launches': zoo['fake_quant'],
-         'max_abs_err': max(max_err, bench_err['fake_quant']), 'ms': ms,
+         **slice9['fake_quant'], 'max_abs_err': max(max_err, bench_err['fake_quant']), 'ms': ms,
          'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
          'library_ms': library_ms},
         int8_row('int8_gemm', 'cnn_quantization_tpu_torch/csrc/int8_gemm.cu', REPLACES_GEMM,
@@ -2142,8 +2628,8 @@ def main():
         {'name': 'stream_copy', 'route': 'cuda',
          'source': 'cnn_quantization_tpu_torch/csrc/stream_copy.cu', 'replaces': REPLACES_COPY,
          'shape': copy['shape'], 'launches': bench_launches['stream_copy'],
-         'max_abs_err': max(copy_worst, bench_err['stream_copy']), 'ms': copy['ms'],
-         'plain_ms': copy['plain_ms'],
+         **slice9['stream_copy'], 'max_abs_err': max(copy_worst, bench_err['stream_copy']),
+         'ms': copy['ms'], 'plain_ms': copy['plain_ms'],
          'bound_ms': copy['bound_ms'], 'bound_by': copy['bound_by'],
          'library_ms': copy['library_ms']}]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
@@ -2153,6 +2639,8 @@ def main():
 
 if __name__ == '__main__':
     try:
+        if sys.argv[1:2] == ['--parallel-worker']:
+            sys.exit(parallel_worker(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f'chip_smoke FAILED: {e}', file=sys.stderr)

@@ -43,12 +43,29 @@ inception_v3), for example the README's commands:
   python -m cnn_quantization_tpu_torch.cli.inference_sim -a inception_v3 -b 32 \\
       --qtype int8 -qw int8 --serving_int8
 
+  # real data: a preprocessed .npz (no decoder needed) or a class-folder tree
+  python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -b 64 \
+      -pcq_w -pcq_a --qtype int4 -qw int4 -c laplace -baa -baw -bcw --data val.npz
+  python -m cnn_quantization_tpu_torch.cli.inference_sim -a resnet50 -b 64 \
+      --qtype int8 -qw int8 --serving_int8 --data ~/datasets/ILSVRC2012 -j 8
+  # data and tensor parallel over torch.distributed (NCCL on the cards)
+  torchrun --nproc_per_node 4 -m cnn_quantization_tpu_torch.cli.inference_sim \
+      -a resnet50 -b 256 --qtype int8 -qw int8 --serving_int8 --mesh_data 2 --mesh_model 2
+
 plus every other flag of the JAX CLI: ``-s``, ``-ra/-rw``, ``-sk``, ``-sf``,
 ``-sba``, ``-bam/-bap/-bata/-batw``, ``-bca``, ``-vcw``, ``-ms``, ``-dd``,
 ``-mlexp``, ``--dtype``, ``--weights *.npz``, and ``--device`` (the card
-unless ``cpu``).  Data is synthetic (``data/synthetic.py``).  ``-j``,
-``--mesh_data``, ``--mesh_model`` and an existing ``--data`` directory exit
-naming their ROADMAP item, so no flag is ignored.  Where stats are loaded
+unless ``cpu``).  ``--data`` reads a preprocessed ``.npz`` or a class-folder
+tree (``data/imagenet.py``, decoded by ``-j`` threads; a tree needs PIL) and
+falls back to synthetic batches (``data/synthetic.py``) when neither exists.
+``--mesh_data``/``--mesh_model`` shard the evaluation over the ranks of a
+process group (``parallel/``: launch under torchrun); a mesh larger than 1x1
+without one exits, as do the packed trunk on a model axis (its int4 codes
+pack along K in groups that a channel slice would cut) and the runs the
+sharded path does not cover (``-sm collect -kld``, ``-ms``, ``-dd``, ``-me``;
+on a data axis of more than one rank also ``-mtq`` and ``-ra``, whose
+reductions are not the global batch's).  The JAX CLI parses ``-j`` and the
+mesh flags and ignores them.  Where stats are loaded
 (``-sm use``) the evaluations freeze every site they can
 (``engine/qparams.py``); the JAX CLI quantizes from the stats on every batch.
 The two agree but at a per-tensor (KLD or min/max) site whose range starts
@@ -64,19 +81,15 @@ import sys
 
 import numpy as np
 
-# dest -> the ROADMAP item that ports it; each such flag defaults to None
-_UNPORTED = {
-    'workers': 'Queue 1 item 13 (ImageNet loader)',
-    'mesh_data': 'Queue 1 item 9 (parallel layer)',
-    'mesh_model': 'Queue 1 item 9 (parallel layer)',
-}
-
-
 def build_parser():
     p = argparse.ArgumentParser(description='Quantized-inference simulator (PyTorch/CUDA)')
-    p.add_argument('--data', metavar='DIR', default=os.environ.get('IMAGENET_DIR'),
-                   help='path to ImageNet; the port runs synthetic data and exits if '
-                        'the path exists (the ImageNet loader is not ported)')
+    p.add_argument('--data', metavar='DIR', default=os.environ.get(
+        'IMAGENET_DIR', os.path.expanduser('~/datasets/ILSVRC2012')),
+                   help='ImageNet: a class-folder tree (DIR or DIR/val; needs PIL) or a '
+                        "preprocessed .npz ('images' [N,H,W,3] float32, 'labels'); "
+                        'synthetic data if neither exists')
+    p.add_argument('-j', '--workers', default=4, type=int,
+                   help='decode threads of the class-folder loader')
     p.add_argument('--arch', '-a', default='resnet18',
                    help='any name of models.available_archs()')
     p.add_argument('--weights', '-w', default=None,
@@ -116,8 +129,8 @@ def build_parser():
                    help='with --serving_packed: comma-separated 1-based stages to pack '
                         '(e.g. 1,3); the others stay on the plain int8 path')
     p.add_argument('--shuffle', '-sh', action='store_true',
-                   help='shuffle the evaluation images (real data only; the synthetic '
-                        'batches are i.i.d.)')
+                   help='shuffle the evaluation images (real data only, as the JAX CLI: '
+                        'the synthetic batches are i.i.d.)')
     p.add_argument('--stochastic', '-s', action='store_true', default=False,
                    help='stochastic rounding of activations (the fake-quant kernel\'s '
                         'stochastic mode)')
@@ -161,23 +174,15 @@ def build_parser():
     p.add_argument('--var_corr_weight', '-vcw', action='store_true')
     p.add_argument('--measure_entropy', '-me', action='store_true')
     p.add_argument('--mid_thread_quant', '-mtq', action='store_true')
-
-    later = 'not ported yet (exits naming its ROADMAP item)'
-    for flags, kw in ((('-j', '--workers'), dict(type=int)),
-                      (('--mesh_data',), dict(type=int)),
-                      (('--mesh_model',), dict(type=int))):
-        p.add_argument(*flags, default=None, help=later, **kw)
+    p.add_argument('--mesh_data', type=int, default=None,
+                   help='data-parallel axis size (default: every rank); needs a process '
+                        'group (torchrun) beyond one rank')
+    p.add_argument('--mesh_model', type=int, default=1,
+                   help='model (output-channel) parallel axis size')
     return p
 
 
-def _reject_unported(args):
-    for dest, item in _UNPORTED.items():
-        if getattr(args, dest) is not None:
-            raise SystemExit(f"--{dest} is not ported to the PyTorch/CUDA package yet: "
-                             f'ROADMAP {item}')
-    if args.data and os.path.exists(args.data):
-        raise SystemExit(f'--data {args.data}: the ImageNet loader is not ported yet '
-                         '(ROADMAP Queue 1 item 13); omit --data for synthetic data')
+def _check_flags(args):
     if args.weights and not args.weights.endswith(('.pth', '.pt', '.npz')):
         raise SystemExit(f'--weights {args.weights}: a torchvision .pth/.pt checkpoint or '
                          'an .npz parameter tree')
@@ -244,14 +249,62 @@ def load_params(args, model, meta):
     return dict(model.state_dict())
 
 
-def synthetic_loader(args, size: int):
-    """The JAX CLI's synthetic fallback (data/imagenet.py make_loader): 8
-    batches, or ``subset // batch`` of them.  Like it, the synthetic batches
-    are never shuffled (their images are i.i.d. already): ``-sh``, ``-kld`` and
-    ``-ac`` shuffle real data only, which the port does not load yet."""
-    from ..data.synthetic import synthetic_batches
-    n = 8 if args.subset is None else max(1, args.subset // args.batch_size)
-    return list(synthetic_batches(args.batch_size, n, size=size, seed=args.seed or 12345))
+def data_loader(args, size: int):
+    """(batches, real_data) of ``data/imagenet.make_loader`` with the JAX
+    CLI's arguments: ``-sh``, ``-kld`` and ``-ac`` shuffle real data
+    (``RandomState(seed)``); the synthetic fallback (8 batches, or ``subset //
+    batch`` of them) is never shuffled, its images are i.i.d. already.  A
+    class-folder tree on a machine without PIL exits, naming the ``.npz``
+    route."""
+    from ..data.imagenet import make_loader
+    try:
+        return make_loader(args.data, args.arch, args.batch_size,
+                           shuffle=bool(args.kld_threshold or args.aciq_cal or args.shuffle),
+                           limit=args.subset, seed=args.seed or 12345, size=size,
+                           workers=args.workers)
+    except ImportError as e:
+        raise SystemExit(f'--data {args.data}: {e}') from e
+
+
+def _unsharded(args, mesh):
+    """[(flag, reason)] of the runs asked for that the sharded path does not
+    cover."""
+    out = []
+    if args.stats_mode == 'collect' and args.kld_threshold:
+        out.append(('-sm collect -kld', 'the KLD capture runs on one process'))
+    for flag, on in (('-ms', args.measure_stats), ('-dd', args.dump_dir),
+                     ('-me', args.measure_entropy)):
+        if on:
+            out.append((flag, 'it runs on one process'))
+    if mesh.data > 1:
+        for flag, on in (('-mtq', args.mid_thread_quant), ('-ra', args.rho_act is not None)):
+            if on:
+                out.append((flag, "its batch reductions are not the global batch's"))
+    return out
+
+
+def mesh_from_args(args, device):
+    """The evaluation mesh of ``--mesh_data``/``--mesh_model``: None without
+    a process group (the single-device path), which admits only the 1x1
+    mesh; under torchrun the (data, model) grid of its ranks."""
+    from ..parallel import make_mesh
+    from ..parallel.distributed import init_distributed
+    if args.serving_packed and args.mesh_model > 1:
+        raise SystemExit('--serving_packed cannot run with --mesh_model > 1: the int4 codes '
+                         'pack in groups of 256 along K, which a channel slice would cut')
+    if not init_distributed(device=device):
+        if (args.mesh_data or 1) * args.mesh_model != 1:
+            raise SystemExit(f'--mesh_data {args.mesh_data} --mesh_model {args.mesh_model}: a '
+                             'mesh larger than 1x1 needs a process group; launch under '
+                             'torchrun (one rank a device)')
+        return None
+    try:
+        mesh = make_mesh(data=args.mesh_data, model=args.mesh_model)
+    except ValueError as e:
+        raise SystemExit(f'--mesh_data/--mesh_model: {e}') from e
+    for flag, why in _unsharded(args, mesh):
+        raise SystemExit(f'{flag} under a process group: {why}')
+    return mesh
 
 
 def _s2d_stem_applied(params_s) -> bool:
@@ -263,7 +316,7 @@ def _s2d_stem_applied(params_s) -> bool:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _reject_unported(args)
+    _check_flags(args)
     packed = packed_from_args(args)
 
     from ..calib.calibrator import (collect_statistics, default_stats_path,
@@ -272,10 +325,18 @@ def main(argv=None):
     from ..engine.evaluate import evaluate
     from ..engine.policy import parse_qtype_bits
     from ..models import build_model
+    from ..parallel import evaluate_sharded, shard_batch
+    from ..parallel.distributed import local_device
     from ..utils.device import resolve_device
     from ..utils.eval_log import EvalLog
 
     device = resolve_device(args.device)
+    mesh = mesh_from_args(args, device)
+    if mesh is not None:
+        device = local_device(device)
+        if device.type == 'cuda' and device.index is not None:
+            import torch
+            torch.cuda.set_device(device)
     print(f"=> building model '{args.arch}' on {device}")
     model, meta = build_model(args.arch, dtype=args.dtype, device=device, seed=args.seed or 0,
                               input_size=args.input_size)
@@ -289,8 +350,9 @@ def main(argv=None):
     if args.kld_threshold:
         sf += '_kld_' + (args.qtype or '')
     stats_path = default_stats_path(sf, per_channel=args.per_channel_quant_act)
-    loader = synthetic_loader(args, size)
-    print('=> ImageNet not found; using synthetic data')
+    loader, real_data = data_loader(args, size)
+    if not real_data:
+        print('=> ImageNet not found; using synthetic data')
     engine = QuantEngine(model, policy, meta)
 
     # ---------------- collect mode -------------------------------------
@@ -298,14 +360,22 @@ def main(argv=None):
         print('Collecting statistics...')
         err_bits = parse_qtype_bits(args.qtype) if args.qtype else None
         cal = args.cal_set_size if (args.kld_threshold or args.aciq_cal) else None
+        batches = loader
+        if mesh is not None:
+            # each rank collects its slice of every batch; the statistics are
+            # the global batch's, and the image count stops at the same batch
+            batches = (shard_batch(mesh, x, y) for x, y in loader)
+            cal = None if cal is None else -(-cal // mesh.data)
         summary = collect_statistics(
-            engine.make_collect(batch_avg=args.stats_batch_avg, err_bits=err_bits),
-            params, loader, cal_set_size=cal)
+            engine.make_collect(batch_avg=args.stats_batch_avg, err_bits=err_bits, mesh=mesh),
+            params, batches, cal_set_size=cal)
         if args.kld_threshold:
             from ..calib.kld import add_kld_thresholds
             add_kld_thresholds(summary, engine, params, loader,
                                cal_set_size=args.cal_set_size)
-        save_stats(stats_path, summary)
+        if _rank() == 0:   # every rank holds the same statistics
+            save_stats(stats_path, summary)
+        _barrier()
         print(f'Saved statistics for {len(summary)} sites -> {stats_path}')
         return 0
 
@@ -325,6 +395,9 @@ def main(argv=None):
         if quantized and stats is not None and eng.policy.qtype is not None:
             qparams = eng.freeze_qparams(stats, input_shape=(1, size, size, 3))
             print(f'Froze qparams for {len(qparams)} sites')
+        if mesh is not None:
+            return evaluate_sharded(eng, p, loader, mesh=mesh, stats=stats,
+                                    quantized=quantized, subset=args.subset, qparams=qparams)
         return evaluate(eng, p, loader, stats=stats, quantized=quantized,
                         subset=args.subset, print_freq=args.print_freq, verbose=True,
                         qparams=qparams)
@@ -375,7 +448,7 @@ def main(argv=None):
     # ---------------- tensor dump (debug) -------------------------------
     if args.dump_dir:
         from ..utils.dump_manager import dump_activations
-        images, _ = loader[0]
+        images, _ = next(iter(loader))
         names = dump_activations(engine, params_q, images, args.dump_dir)
         print(f'Dumped {len(names)} activations to {args.dump_dir}')
         return 0
@@ -386,6 +459,8 @@ def main(argv=None):
     name = f'{args.arch}_W{args.qweight}A{args.qtype}'
     if args.serving_int8:
         name += '_serving'
+    if mesh is not None:   # one run directory a rank
+        name += f'_rank{_rank()}'
     with MetricsTracker('~/mlruns_mxt_tpu', experiment, args, name) as tracker:
         if args.serving_int8:
             print(f'=> serving-int8: calibrating frozen activation scales ({args.serving_cal})')
@@ -399,9 +474,14 @@ def main(argv=None):
             scales = engine.freeze_serving_scales(params_s, loader, mode=args.serving_cal,
                                                   percentile=args.serving_percentile,
                                                   packed=args.serving_packed)
-            res = evaluate(engine, params_s, loader, stats=stats, quantized='serving_int8',
-                           act_scales=scales, packed=packed, subset=args.subset,
-                           print_freq=args.print_freq, verbose=True)
+            if mesh is not None:
+                res = evaluate_sharded(engine, params_s, loader, mesh=mesh, stats=stats,
+                                       quantized='serving_int8', act_scales=scales,
+                                       packed=packed, subset=args.subset)
+            else:
+                res = evaluate(engine, params_s, loader, stats=stats, quantized='serving_int8',
+                               act_scales=scales, packed=packed, subset=args.subset,
+                               print_freq=args.print_freq, verbose=True)
         else:
             res = run_eval(engine, params_q if policy.qtype else params,
                            quantized=policy.qtype is not None)
@@ -414,6 +494,17 @@ def main(argv=None):
             print(f"Average bit rate: avg.entropy.act - {res['avg_entropy']}")
         print(json.dumps({k: round(float(v), 4) for k, v in res.items()}))
     return 0
+
+
+def _rank() -> int:
+    from ..parallel.mesh import world
+    return world()[0]
+
+
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _load_order(args, stats):

@@ -12,7 +12,12 @@ Port of ``cnn_quantization_tpu/engine/context.py``.  Each layer calls
                              from a calibration-stats dict or frozen qparams).
 
 A fresh context is made for every forward.  Activations are NCHW, so the
-channel axis is 1 throughout.
+channel axis is 1 throughout.  Under a (data, model) mesh
+(``parallel/mesh.py``) the context also carries this rank's two process
+groups: ``data_group``, over which the forward's activation statistics
+reduce (``ops/stats.global_over``), and ``model_group``, over which a conv or
+linear whose weight holds a slice of its output channels all-gathers its
+output (``models/layers.py``).  Both are None on one device.
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ import zlib
 from typing import Any, Mapping
 
 import torch
+import torch.distributed
 
 from ..ops import bias_corr
 from ..ops.kernels import fake_quant as fq
 from ..ops.quantizer import QuantConfig, quantize_activation
-from ..ops.stats import act_stats, act_stats_per_channel
+from ..ops.stats import act_stats, act_stats_per_channel, data_group, global_sum
 from .policy import QuantPolicy
 
 CHANNEL_AXIS = 1
@@ -52,6 +58,8 @@ class TapContext:
     """Base: quantization disabled."""
 
     mode = 'off'
+    data_group = None
+    model_group = None
 
     def tap(self, x, site: Site):
         return x
@@ -292,12 +300,20 @@ def _quant_error_stats(xf, bits: int):
     qmax = 2.0 ** bits - 1.0
     out = {}
 
+    group = data_group()
+
     def add(name, delta, offset):
         xq = fq.fake_quant_fused(flat, delta, offset, qmax)
         err = flat - xq
-        out[f'mse_{name}'] = torch.mean(err * err)
-        denom = torch.linalg.norm(flat) * torch.linalg.norm(xq) + 1e-12
-        out[f'cos_{name}'] = torch.dot(flat, xq) / denom
+        if group is None:
+            out[f'mse_{name}'] = torch.mean(err * err)
+            denom = torch.linalg.norm(flat) * torch.linalg.norm(xq) + 1e-12
+            out[f'cos_{name}'] = torch.dot(flat, xq) / denom
+        else:   # the global batch's, under data parallelism
+            n = float(flat.numel() * torch.distributed.get_world_size(group))
+            out[f'mse_{name}'] = global_sum(err * err) / n
+            denom = torch.sqrt(global_sum(flat * flat)) * torch.sqrt(global_sum(xq * xq)) + 1e-12
+            out[f'cos_{name}'] = global_sum(flat * xq) / denom
 
     d, o = minmax_delta_offset(s['min'], s['max'], half_range=False)
     add('lowp', d, o)

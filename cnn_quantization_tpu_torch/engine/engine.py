@@ -22,6 +22,7 @@ from ..ops import bias_corr
 from ..ops.aciq import ALPHA_LAPLACE
 from ..ops.kernels.int_matmul import quantize_sym_int8
 from ..ops.quantizer import quantize_weight
+from ..ops.stats import global_over
 from ..utils.device import as_f32, nhwc_to_nchw
 from .context import CollectContext, QuantizeContext, ServingInt8Context, TapContext
 from .policy import QuantPolicy, parse_qtype_bits
@@ -113,7 +114,7 @@ class QuantEngine:
         return min(act, 8), min(weight, 8)
 
     def make_forward(self, quantized: bool | str = True, qparams=None,
-                     act_scales=None, packed: bool | tuple = False) -> Callable:
+                     act_scales=None, packed: bool | tuple = False, mesh=None) -> Callable:
         """f(params, stats, images) -> (logits, aux).  ``images`` are NHWC, as
         the JAX package takes them; the model runs them as an NCHW
         channels_last view on its device.  ``stats`` is the calibration dict
@@ -125,13 +126,24 @@ class QuantEngine:
         convs of a Bottleneck ResNet as int4-packed GEMMs, block boundaries two
         codes to a byte.  It engages only with scales frozen with
         ``packed=True`` and needs activations of at most 4 bits: the packed
-        epilogue clamps codes to +-7 whatever the grid."""
+        epilogue clamps codes to +-7 whatever the grid.
+
+        ``mesh`` (``parallel/mesh.Mesh``) runs the forward as one rank of a
+        (data, model) grid: ``images`` are this rank's slice of the batch and
+        ``params`` its shard (``parallel/mesh.shard_params``); activation
+        statistics reduce over the data group, sharded convs and linears
+        gather their output channels over the model group.  The packed trunk
+        takes no model axis: its int4 codes pack in groups of 256 along K,
+        which a channel slice would cut."""
         serving = quantized == 'serving_int8'
         if serving:
             act_bits, weight_bits = self._serving_bits()
             if packed and act_bits > 4:
                 raise ValueError(f'packed serving stores 4-bit codes; the policy asks for '
                                  f'{act_bits}-bit activations (qtype={self.policy.qtype!r})')
+            if packed and mesh is not None and mesh.model > 1:
+                raise ValueError('packed serving cannot split output channels over a model '
+                                 'axis: the int4 codes pack in groups of 256 along K')
             # frozen scales live on the device from here on: no host-to-device
             # copy per forward
             scales = {k: as_f32(v, self.device) for k, v in (act_scales or {}).items()}
@@ -146,9 +158,7 @@ class QuantEngine:
                                       ignore_ids=self.ignore_ids, qparams=qparams)
             else:
                 ctx = TapContext()
-            x = nhwc_to_nchw(images, self.device)
-            logits = torch.func.functional_call(self.model, params, (x, ctx))
-            return logits, ctx.finalize()
+            return _run(self.model, params, images, ctx, self.device, mesh)
 
         return fwd
 
@@ -273,9 +283,11 @@ class QuantEngine:
 
     def make_collect(self, per_channel: bool | None = None,
                      batch_avg: bool = False,
-                     err_bits: int | None = None) -> Callable:
+                     err_bits: int | None = None, mesh=None) -> Callable:
         """f(params, x) -> (logits, stats_batch) for calibration.  ``err_bits``
-        also collects per-prior quantization-error columns at that width."""
+        also collects per-prior quantization-error columns at that width.
+        With a ``mesh``, ``x`` is this rank's slice of the batch and the
+        statistics are the global batch's (reduced over the data group)."""
         if per_channel is None:
             per_channel = self.policy.pcq_act
 
@@ -283,11 +295,24 @@ class QuantEngine:
         def fwd(params, images):
             ctx = CollectContext(per_channel=per_channel, batch_avg=batch_avg,
                                  err_bits=err_bits)
-            x = nhwc_to_nchw(images, self.device)
-            logits = torch.func.functional_call(self.model, params, (x, ctx))
-            return logits, ctx.finalize()
+            return _run(self.model, params, images, ctx, self.device, mesh)
 
         return fwd
+
+
+def _run(model, params, images, ctx, device, mesh=None):
+    """(logits, ctx.finalize()) of one forward of ``model`` on ``params``
+    and NHWC ``images``; under a ``mesh`` the context carries this rank's
+    groups and the activation statistics reduce over the data group."""
+    if mesh is not None:
+        # a data axis of one rank reduces nothing: its statistics stay the
+        # single-device arithmetic
+        ctx.data_group = mesh.data_group if mesh.data > 1 else None
+        ctx.model_group = mesh.model_group
+    x = nhwc_to_nchw(images, device)
+    with global_over(ctx.data_group):
+        logits = torch.func.functional_call(model, params, (x, ctx))
+    return logits, ctx.finalize()
 
 
 def s2d_stem_kernel(kernel: torch.Tensor) -> torch.Tensor:

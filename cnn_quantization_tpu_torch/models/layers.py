@@ -13,6 +13,10 @@ float32, and the serving kernels write ``dtype``.  Under a ``ServingInt8Context`
 through the hand-written kernels (``ops/kernels/int_conv.py``,
 ``ops/kernels/int_matmul.py``), and in W4A4 packed serving the 1x1 convs of a
 Bottleneck trunk run as the int4-packed GEMM (``ops/kernels/int4_matmul.py``).
+Under tensor parallelism a conv or linear may hold a slice of its output
+channels (``parallel/mesh.shard_params``): it computes that slice, epilogue
+included, and all-gathers the channels over the context's model group, so
+every layer after it, and every tap, sees the full tensor.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from torch import nn
 
 from ..engine.context import Site, TapContext
 from ..ops.kernels import int4_matmul, int_conv, int_matmul
+from ..parallel.mesh import gather_channels
 from ..utils.device import as_f32
 
 
@@ -106,6 +111,16 @@ def _tap(ctx: TapContext, y, site: Site | None):
     return ctx.tap(y, site) if site is not None else y
 
 
+def _gather_out(ctx: TapContext, y, features: int, dim: int = 1):
+    """The layer's full output: ``y`` itself, or, when the weight held a
+    slice of the ``features`` output channels, every rank's slice gathered
+    over the context's model group."""
+    group = getattr(ctx, 'model_group', None)
+    if group is None or y.shape[dim] == features:
+        return y
+    return gather_channels(y, group, dim)
+
+
 def _add_bias(y, bias, shape):
     """The float32 bias added in place to a conv's or linear's low-precision
     output ``y``: the sum is taken in float32 and rounded to ``y``'s type, and
@@ -181,7 +196,7 @@ class QConv(nn.Module):
             y = _add_bias(F.conv2d(x.to(self.dtype), weight.to(self.dtype), None, self.strides,
                                    self.padding, groups=self.groups),
                           self.bias, (1, -1, 1, 1))
-        return _tap(ctx, y, self.site)
+        return _tap(ctx, _gather_out(ctx, y, self.features), self.site)
 
     def _serve(self, x, ctx, stem_s2d: bool, residual=None, out_spec=None,
                fuse_relu: bool = False):
@@ -264,6 +279,7 @@ class QConv(nn.Module):
                                    strides=self.strides, padding=self.padding,
                                    groups=self.groups, act_bits=act_bits, act_scale=act_scale,
                                    fuse_relu=fuse_relu, out_dtype=self.dtype)
+        y = _gather_out(ctx, y, self.features)
         if out_spec is not None:
             # packed-serving orchestration (Bottleneck conv2): requantize the
             # int8 conv's output to codes at the NEXT consumer's frozen scale;
@@ -335,7 +351,7 @@ class QLinear(nn.Module):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  site: Site | None = None, dtype=torch.float32):
         super().__init__()
-        self.site, self.dtype = site, dtype
+        self.site, self.dtype, self.features = site, dtype, features
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -352,7 +368,7 @@ class QLinear(nn.Module):
             else:
                 y = _add_bias(F.linear(x.to(self.dtype), self.weight.to(self.dtype)),
                               self.bias, (1, -1))
-            return _tap(ctx, y, self.site)
+            return _tap(ctx, _gather_out(ctx, y, self.features, -1), self.site)
         # true-int path; the classifier/linear stays 8-bit whatever the conv
         # bit widths are (reference weight_classifier/activation_classifier
         # policy, i_q_m.py:414, 437)
@@ -373,6 +389,7 @@ class QLinear(nn.Module):
         y = int_matmul.int8_matmul_dequant(x_q.reshape(-1, x_q.shape[-1]), w_codes.t(),
                                            act_scale * w_scale, self.bias,
                                            out_dtype=self.dtype)
+        y = _gather_out(ctx, y, self.features, -1)
         return _tap(ctx, y.reshape(*x_q.shape[:-1], -1), self.site)
 
 

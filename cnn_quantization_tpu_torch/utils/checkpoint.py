@@ -14,11 +14,14 @@ torchvision's (C, H, W) flatten order to the (H, W, C) order the port
 flattens in (``models/vgg.py``).  The second is ``load_params_npz`` of the
 JAX package's ``utils/checkpoint.py`` :31-40 (the tree its
 ``save_params_npz`` writes, keys joined by '/'); the CLI converts such a tree
-with ``utils/flax_params.state_dict_from_flax``.
+with ``utils/flax_params.state_dict_from_flax``.  ``save_params_npz`` (:25-28)
+writes such a tree (``utils/flax_params.flax_from_state_dict`` makes one from
+a state dict).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -144,3 +147,19 @@ def load_params_npz(path: str) -> dict[str, Any]:
                 node = node.setdefault(seg, {})
             node[parts[-1]] = data[key]
     return out
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = ''):
+    for k, v in tree.items():
+        path = f'{prefix}/{k}' if prefix else k
+        if isinstance(v, Mapping):
+            yield from _flatten(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def save_params_npz(path: str, params: Mapping[str, Any]):
+    """A nested parameter tree as the JAX package's flat ``.npz`` (keys joined
+    by '/'), which ``load_params_npz`` of either package reads."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **dict(_flatten(params)))

@@ -16,6 +16,10 @@ their dtype (4-D codes land in channels_last memory, as
 ``[O, 12, 4, 4]``) and ``w_scale`` leaves become ``<module>.w_scale``.
 ``act_scales_from_jax`` carries the frozen serving scales across.  With these
 both packages compute on identical weights, codes and scales.
+``flax_from_state_dict`` is the inverse: a port state dict as the JAX
+package's tree, which ``utils/checkpoint.save_params_npz`` writes in the
+JAX package's ``.npz`` layout (the k-means CLI's output, which both CLIs'
+``--weights`` read).
 """
 
 from __future__ import annotations
@@ -91,3 +95,52 @@ def act_scales_from_jax(scales: Mapping[str, Any]) -> dict[str, Any]:
     Site ids and the channel order are the same in both packages."""
     return {k: (float(v) if np.ndim(v) == 0 else np.asarray(v, np.float32).copy())
             for k, v in scales.items()}
+
+
+_FLAX_LEAF_NAMES = {v: k for k, v in _LEAF_NAMES.items()}
+
+
+def _flax_segments(segments, arch: str | None):
+    """Torch path segments -> the JAX tree's: each numeric segment merged into
+    the one before it (``layer1.0`` -> ``layer1_0``, ``features.0.0`` ->
+    ``features_0_0``), except for the architectures in ``_UNSPLIT_ARCHS``."""
+    if arch in _UNSPLIT_ARCHS:
+        return list(segments)
+    out: list[str] = []
+    for seg in segments:
+        if seg.isdigit() and out:
+            out[-1] += f'_{seg}'
+        else:
+            out.append(seg)
+    return out
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor],
+                         arch: str | None = None) -> dict[str, Any]:
+    """{torch name: tensor} -> the JAX package's parameter tree (nested dicts
+    of numpy arrays): OIHW conv weights become HWIO ``kernel`` leaves,
+    ``[out, in]`` linear weights ``[in, out]``, BN entries
+    ``scale``/``bias``/``mean``/``var``; int8 codes keep their dtype, every
+    float leaf is float32.  BN step counters are dropped.  The inverse of
+    ``state_dict_from_flax(tree, arch)``."""
+    tree: dict[str, Any] = {}
+    for name, t in state.items():
+        if name.endswith('.num_batches_tracked'):
+            continue
+        *segments, leaf = name.split('.')
+        v = t.detach().cpu().numpy()
+        if v.dtype != np.int8:
+            v = v.astype(np.float32)
+        if leaf == 'weight' and v.ndim == 4:
+            key, v = 'kernel', v.transpose(2, 3, 1, 0)   # OIHW -> HWIO
+        elif leaf == 'weight' and v.ndim == 2:
+            key, v = 'kernel', v.T                       # [out, in] -> [in, out]
+        elif leaf in _FLAX_LEAF_NAMES:
+            key = _FLAX_LEAF_NAMES[leaf]
+        else:
+            raise ValueError(f'{name}: no JAX counterpart for a {v.ndim}-D {leaf!r}')
+        node = tree
+        for seg in _flax_segments(segments, arch):
+            node = node.setdefault(seg, {})
+        node[key] = np.ascontiguousarray(v)
+    return tree

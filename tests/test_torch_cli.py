@@ -1,8 +1,7 @@
 """The port's CLI in-process on the CPU, and the port's isolation from JAX.
 
 The CLI runs the README's ResNet commands at resnet18/64x64 on synthetic
-data; a flag still unported exits naming its ROADMAP item, and a misuse of a
-ported one exits saying what it needs.  The
+data; a misuse of a flag exits saying what it needs.  The
 isolation test imports every module of the port in a fresh interpreter in
 which ``jax`` cannot be imported, and checks that nothing of the JAX package
 was loaded; a source scan backs it up, ``chip_smoke.py`` included.
@@ -84,26 +83,40 @@ def test_cli_weights_fold_bn_like_jax(cli_env, capsys):
 
 
 # the test ids are kept as they were when these flags were still unported
-# ("flag0-item 6" ... "flag7-item 14"): the flags run now, and what is left to
+# ("flag0-item 6" ... "flag9-item 13"): the flags run now, and what is left to
 # exit for is their misuse (which the JAX CLI silently ignores or fails on
-# deeper down) or a flag that is still unported
+# deeper down): a mesh larger than 1x1 without a process group, the packed
+# trunk on a model axis, a class-folder tree on a machine without PIL
 @pytest.mark.parametrize('flag,item', [
     (['--serving_packed'], '--serving_packed needs --serving_int8'),
     (['--serving_int8', '--serving_packed_stages', '1,2'],
      '--serving_packed_stages needs --serving_packed'),
     (['-kld'], '-kld quantizes from the thresholds of -sm collect -kld'),
-    (['--mesh_data', '2'], 'item 9'),
+    (['--mesh_data', '2'], 'mesh larger than 1x1 needs a process group'),
     (['-ct'], 'custom_test needs --order_file or stats'),
     (['-sm', 'use'], 'no stats at'),
-    (['--data', '/'], 'item 13'),
+    (['--serving_int8', '--serving_packed', '--mesh_model', '2'],
+     'cannot run with --mesh_model > 1'),
     (['--weights', 'model.ckpt'], 'an .npz parameter tree'),
-    (['--mesh_model', '2'], 'item 9'),
-    (['-j', '8'], 'item 13'),
+    (['--mesh_model', '2'], 'mesh larger than 1x1 needs a process group'),
+    (['-j', '8', '--data', 'TREE'], r'needs PIL.*\.npz'),
 ], ids=['flag0-item 6', 'flag1-item 6', 'flag2-item 8', 'flag3-item 12', 'flag4-item 14',
         'flag5-item 14', 'flag6-item 14', 'flag7-item 14', 'flag8-item 9', 'flag9-item 13'])
-def test_cli_unported_flags_exit(cli_env, flag, item):
+def test_cli_unported_flags_exit(cli_env, monkeypatch, flag, item):
+    if 'TREE' in flag:
+        flag = [str(_image_tree(cli_env)) if f == 'TREE' else f for f in flag]
+        monkeypatch.setitem(sys.modules, 'PIL', None)
     with pytest.raises(SystemExit, match=item):
         main(BASE + ['--qtype', 'int4'] + flag)
+
+
+def _image_tree(root):
+    """A class-folder tree of one PNG (written with PIL)."""
+    import numpy as np
+    from PIL import Image
+    (root / 'val' / 'n01').mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.zeros((40, 40, 3), np.uint8)).save(root / 'val' / 'n01' / 'a.png')
+    return root
 
 
 PACKED = ['--device', 'cpu', '-a', 'resnet50', '-b', '2', '--subset', '2', '--input_size', '64',
@@ -137,9 +150,12 @@ def test_cli_serving_packed_stages_must_list_stages(cli_env, stages):
                      '--serving_packed_stages', stages])
 
 
-def test_cli_existing_imagenet_dir_exits(cli_env):
-    args = [a if a != '/nonexistent' else str(cli_env) for a in BASE]
-    with pytest.raises(SystemExit, match='item 13'):
+def test_cli_existing_imagenet_dir_exits(cli_env, monkeypatch):
+    """An existing ImageNet tree is read (``--data``), but it needs PIL to
+    decode: without PIL the CLI exits naming it and the ``.npz`` route."""
+    args = [a if a != '/nonexistent' else str(_image_tree(cli_env)) for a in BASE]
+    monkeypatch.setitem(sys.modules, 'PIL', None)
+    with pytest.raises(SystemExit, match=r'needs PIL.*\.npz'):
         main(args + ['--qtype', 'int4'])
 
 

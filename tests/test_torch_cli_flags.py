@@ -74,7 +74,9 @@ def test_policy_from_args_passes_every_field():
     j_defaults = vars(j_cli.build_parser().parse_args([]))
     defaults = vars(cli.build_parser().parse_args([]))
     differ = {k for k in j_defaults if defaults.get(k, 'missing') != j_defaults[k]}
-    assert differ == {'data', 'device', 'workers', 'mesh_model'}
+    # only the device: the card for the port ('tpu' for JAX); --data, -j and
+    # the mesh flags take the JAX CLI's defaults since they run
+    assert differ == {'device'}
 
 
 @pytest.mark.parametrize('name', list(FLAGS))

@@ -6,7 +6,11 @@ Tolerances:
     float64 arithmetic on the same histogram);
   * the port's C++ sweep: equal to the JAX package's within 1e-12 relative
     (one source; the JAX library is built with -march=native, which may
-    contract a multiply-add in the bin-edge arithmetic);
+    contract a multiply-add in the bin-edge arithmetic).  The JAX package's
+    library is compiled here, from its source and with its Makefile's flags,
+    into the test's own directory: the package's on-demand build writes into
+    its source tree, and a parallel test worker that loads a half-written
+    file there turns the comparison into a skip;
   * C++ against numpy: within two bins of the histogram (2 * 2 * absmax /
     2001), the bar of tests/test_native_kld.py: the two bin the values with
     different arithmetic;
@@ -16,15 +20,18 @@ Tolerances:
   * the KLD quantizer branch: bit-exact from the same statistics.
 """
 
+import ctypes
 import filecmp
+import os
 import pathlib
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from cnn_quantization_tpu import native as j_native
 from cnn_quantization_tpu.calib import kld as j_kld
 from cnn_quantization_tpu.data.synthetic import synthetic_batches
 from cnn_quantization_tpu.engine.qparams import SiteQParams as JSiteQParams
@@ -61,12 +68,35 @@ def test_numpy_sweep_equals_jax(name):
         j_kld.kld_threshold(arr, use_native=False)
 
 
+# the JAX package's native/Makefile: CXXFLAGS and the link step
+JAX_NATIVE_FLAGS = ('-O3', '-march=native', '-fPIC', '-std=c++17', '-Wall', '-shared')
+
+
+@pytest.fixture(scope='module')
+def jax_native(tmp_path_factory):
+    """The JAX package's ``kld_threshold`` from its C++ source (read only),
+    built with its Makefile's flags under a temporary name and renamed into
+    place, loaded with ctypes as its binding loads it."""
+    cxx = shutil.which(os.environ.get('CXX', 'g++')) or shutil.which('g++')
+    assert cxx, 'a C++ compiler is needed (the port builds its own copy with g++ too)'
+    out = tmp_path_factory.mktemp('jax_native') / 'libcnnq_native.so'
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    src = REPO / 'cnn_quantization_tpu' / 'native' / 'kld_threshold.cpp'
+    subprocess.run([cxx, *JAX_NATIVE_FLAGS, '-o', str(tmp), str(src)], check=True,
+                   capture_output=True, timeout=120)
+    os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.kld_threshold.restype = ctypes.c_double
+    lib.kld_threshold.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                                  ctypes.c_int, ctypes.c_int]
+    return lib
+
+
 @pytest.mark.parametrize('name', list(arrays()))
-def test_native_sweep_equals_jax_native(name):
-    if not j_native.available():
-        pytest.skip("the JAX package's native library is not built")
-    arr = arrays()[name].astype(np.float32)
-    want = j_native.kld_threshold_native(arr)
+def test_native_sweep_equals_jax_native(name, jax_native):
+    arr = np.ascontiguousarray(arrays()[name], np.float32)
+    want = jax_native.kld_threshold(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                    arr.size, 2001, 15)
     assert kld.kld_threshold(arr) == pytest.approx(want, rel=1e-12)
 
 
