@@ -45,14 +45,24 @@ two serving paths run at batch 64:
     values a leaf) and its ``.npz`` through ``inference_sim --weights``;
     ``golden_repro --smoke`` (six configs) and its ``w4a4_headline`` at
     224x224, batch 64; ``fake_quant_ste`` at ``[64,256,56,56]``, forward and
-    gradient against the plain versions;
+    gradient against the plain versions; ``cost_analysis`` of one W8A8
+    serving forward at batch 64, its operations equal to ``count_work``'s;
   * the parallel layer (phase ``parallel_path``): a one-rank NCCL group on a
     1x1 mesh runs ``evaluate_sharded`` (W4A4 frozen simulation, W8A8 serving)
-    equal to ``evaluate`` bit for bit; two processes over gloo on the one card
-    (``chip_smoke.py --parallel-worker ...``), meshes data=2/model=1 and
-    data=1/model=2, run W8A8 serving with frozen scales, logits equal to one
-    process's bit for bit, each rank's int8 launches by route against the
-    route table of its sliced shapes;
+    equal to ``evaluate`` bit for bit, and the W8A8 serving tree goes through
+    a sharded parameter checkpoint (DCP) bit for bit, logits included; two
+    processes over gloo on the one card (``chip_smoke.py --parallel-worker
+    ...``), meshes data=2/model=1 and data=1/model=2, run W8A8 serving with
+    frozen scales, logits equal to one process's bit for bit, each rank's
+    int8 launches by route against the route table of its sliced shapes,
+    and save their shards into one checkpoint, which reads back whole equal
+    to the unsharded tree and by mesh index equal to ``shard_params``;
+  * eval-loop resume (phase ``resume_path``): ResNet-50 at batch 64, six
+    batches from the host, the W4A4 headline with frozen qparams and W8A8
+    serving with frozen scales, each run uninterrupted, interrupted at batch
+    3 with a checkpoint every 2 batches, and resumed: top-1/top-5 equal,
+    launches only for the batches run, no device value read inside the
+    uninterrupted loop;
   * the throughput bench (``python3 -m cnn_quantization_tpu_torch.bench``):
     ResNet-50 with bfloat16 activations at batch 128 (W4A4 simulation, bf16
     baseline, W8A8 serving, W4A4 serving plain and packed), the batch sweep,
@@ -71,8 +81,9 @@ to the model's modules, and ``int8_timing``/``int4_timing`` time each timed
 shape on its route and on the mma.sync route beside it.
 
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
-(each path's launches; the slice-9 phases' as ``data_launches``,
-``tools_launches`` and ``parallel_launches``) and ``{"ok": true, "device":
+(each path's launches; the slice-9 and slice-10 phases' as
+``data_launches``, ``tools_launches``, ``parallel_launches`` and
+``resume_launches``) and ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero before those lines.  Without a CUDA
 device, or without the rest of the repository,
 it exits non-zero and prints no result.
@@ -95,6 +106,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from cnn_quantization_tpu_torch import bench
 from cnn_quantization_tpu_torch.calib.calibrator import (collect_statistics, load_stats,
@@ -117,7 +130,8 @@ from cnn_quantization_tpu_torch.ops.kernels import stream_copy as sc
 from cnn_quantization_tpu_torch.ops.quant_math import affine_qparams
 from cnn_quantization_tpu_torch.utils.device import card_name_and_power
 from cnn_quantization_tpu_torch.utils.profiling import device_ms as cuda_ms
-from cnn_quantization_tpu_torch.utils.profiling import device_ms_by_class, device_time_by_kernel
+from cnn_quantization_tpu_torch.utils.profiling import (cost_analysis, count_work,
+                                                        device_ms_by_class, device_time_by_kernel)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -2158,15 +2172,20 @@ def parallel_setup(device, arch, size, batch, s2d_stem):
 
 def parallel_worker(argv):
     """One rank of ``parallel_path`` (b): ``chip_smoke.py --parallel-worker
-    <init> <world> <rank> <data> <model> <device> <arch> <size> <batch> <out>``.
-    W8A8 serving with frozen scales on the (data, model) mesh of a gloo
-    group, with the space-to-depth (all-integer) stem and with the float
-    stem; writes the gathered logits, the counts and the int8 launches by
-    route (kernel counters and calls by shape)."""
+    <init> <world> <rank> <data> <model> <device> <arch> <size> <batch> <out>
+    <checkpoint>``.  W8A8 serving with frozen scales on the (data, model)
+    mesh of a gloo group, with the space-to-depth (all-integer) stem and with
+    the float stem; writes the gathered logits, the counts and the int8
+    launches by route (kernel counters and calls by shape).  With the s2d
+    stem it also saves its shard of the serving tree into the DCP directory
+    ``<checkpoint>`` (``save_params_sharded``, every rank together) and reads
+    its slices back (``load_params_sharded`` with the mesh)."""
     from cnn_quantization_tpu_torch.parallel import make_mesh, shard_params
     from cnn_quantization_tpu_torch.parallel.distributed import init_distributed
     from cnn_quantization_tpu_torch.parallel.eval_parallel import evaluate_sharded
-    init, world, rank, data, model_axis, dev, arch, size, batch, out = argv
+    from cnn_quantization_tpu_torch.utils.checkpoint import (load_params_sharded,
+                                                             save_params_sharded)
+    init, world, rank, data, model_axis, dev, arch, size, batch, out, ckpt = argv
     device = torch.device(dev)
     if device.type == 'cpu':
         torch.set_num_threads(1)
@@ -2187,10 +2206,29 @@ def parallel_worker(argv):
                             logits=res['logits'].cpu().numpy(), wall_s=wall,
                             launches=dict(+route_launches()), calls=dict(calls),
                             predicted=dict(times(table, len(batches))))
+        if s2d:
+            mine = shard_params(sp, mesh, model)
+            t0 = time.perf_counter()
+            save_params_sharded(ckpt, mine, mesh, model)
+            save_s = time.perf_counter() - t0
+            back = load_params_sharded(ckpt, mesh, model, device=device)
+            result['checkpoint'] = dict(save_s=save_s, slices_equal=same_tree(back, mine))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     with open(out, 'wb') as f:
         np.save(f, np.array(result, dtype=object), allow_pickle=True)
+
+
+def same_tree(got, want):
+    """Every entry of ``want`` in ``got`` and no other: equal dtype, shape,
+    strides and values (bit for bit)."""
+    return got.keys() == want.keys() and all(
+        got[k].dtype == v.dtype and got[k].shape == v.shape and got[k].stride() == v.stride()
+        and torch.equal(got[k], v) for k, v in want.items())
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
 def _free_port():
@@ -2211,11 +2249,19 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
     stem (every conv integer; the float stem's cuDNN algorithm may change
     with the sliced shapes, so that variant is reported, not held), each
     rank's int8 launches by route equal to the route table of its sliced
-    shapes.  No multi-GPU speed is measured: there is one card."""
+    shapes.  Sharded parameter checkpoints (``utils/checkpoint.py``, DCP):
+    in (a) the W8A8 serving tree saved and loaded into fresh tensors, every
+    entry and the serving logits on it bit-equal; in (b) each mesh's ranks
+    save their shards of the s2d-stem tree together, each reads its own
+    slices back equal, and this process reads the checkpoint whole (equal to
+    the unsharded tree) and by each model index (equal to ``shard_params``).
+    No multi-GPU speed is measured: there is one card."""
     import subprocess
     import torch.distributed as dist
-    from cnn_quantization_tpu_torch.parallel import make_mesh
+    from cnn_quantization_tpu_torch.parallel import Mesh, make_mesh, shard_params
     from cnn_quantization_tpu_torch.parallel.eval_parallel import evaluate_sharded
+    from cnn_quantization_tpu_torch.utils.checkpoint import (load_params_sharded,
+                                                             save_params_sharded)
     report = dict(arch=arch, input_size=size, batch=batch, batches=PARALLEL_BATCHES)
     launches = Counter()
     fq.fake_quant_fused.launches = 0
@@ -2257,6 +2303,28 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
             check(same and all(sharded[k] == single[k] for k in ('top1', 'top5', 'loss')),
                   f'parallel_path (a) {name}: sharded {runs[name]} against evaluate {single}')
             launches += counted
+        # the serving tree through a DCP checkpoint: every entry and the
+        # logits on the loaded tree bit-equal
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'w8a8_serving')
+            t0 = time.perf_counter()
+            save_params_sharded(path, run_params, mesh, model)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = load_params_sharded(path, mesh, model, device=device)
+            load_s = time.perf_counter() - t0
+            nbytes = dir_bytes(path)
+        reset_route_launches()
+        fwd = run_eng.make_forward(quantized='serving_int8', act_scales=kw['act_scales'])
+        before, _ = fwd(run_params, None, batches[1][0])
+        after, _ = fwd(loaded, None, batches[1][0])
+        launches += route_launches()
+        report['checkpoint_one_rank'] = ckpt = dict(
+            entries=len(loaded), bytes_written=nbytes, save_s=save_s, load_s=load_s,
+            entries_equal=same_tree(loaded, run_params),
+            logits_equal=bool(torch.equal(before, after)))
+        check(ckpt['entries_equal'] and ckpt['logits_equal'],
+              f'parallel_path checkpoint round trip: {ckpt}')
         want_fq = len(sites) * PARALLEL_BATCHES
         want_int8 = times(route_table(model), PARALLEL_BATCHES)
         check(runs['w4a4_frozen']['launches'].get('fake_quant') == want_fq
@@ -2271,10 +2339,12 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
     # (b) two processes over gloo on the one device
     single = {}
     for stem, s2d in (('s2d_stem', True), ('float_stem', False)):
-        _, eng8, sp, scales, eval_batches = parallel_setup(device, arch, size, batch, s2d)
+        model8, eng8, sp, scales, eval_batches = parallel_setup(device, arch, size, batch, s2d)
         with cli_instrumented() as (_, logits):
             res = evaluate(eng8, sp, eval_batches, quantized='serving_int8', act_scales=scales)
         single[stem] = dict(res, logits=torch.cat(logits).cpu().numpy())
+        if s2d:
+            sp_s2d = sp
     del eng8, sp
     report['two_ranks'] = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2282,11 +2352,12 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
                                                ('data1_model2', (1, 2))):
             init = f'tcp://127.0.0.1:{_free_port()}'
             outs = [os.path.join(tmp, f'{mesh_name}_{r}.npy') for r in range(2)]
+            ckpt_dir = os.path.join(tmp, f'{mesh_name}_checkpoint')
             t0 = time.perf_counter()
             procs = [subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), '--parallel-worker', init, '2',
                  str(r), str(data), str(model_axis), str(device), arch, str(size), str(batch),
-                 outs[r]], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 outs[r], ckpt_dir], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for r in range(2)]
             try:
                 for p in procs:
@@ -2298,8 +2369,23 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
                         p.kill()
             wall = time.perf_counter() - t0
             entry = report['two_ranks'][mesh_name] = dict(wall_s_both_ranks=wall)
+            # the ranks' checkpoint holds the unsharded tree once: read whole
+            # it equals the tree, read by a mesh index it equals that slice
+            t0 = time.perf_counter()
+            whole = load_params_sharded(ckpt_dir, device=device)
+            ck = entry['checkpoint'] = dict(
+                bytes_written=dir_bytes(ckpt_dir), load_whole_s=time.perf_counter() - t0,
+                whole_equal=same_tree(whole, sp_s2d), slices_equal=[
+                    same_tree(load_params_sharded(ckpt_dir, m, model8, device=device),
+                              shard_params(sp_s2d, m, model8))
+                    for m in (Mesh(data, model_axis, 0, i) for i in range(model_axis))])
+            del whole
             for r, path in enumerate(outs):
                 got = np.load(path, allow_pickle=True).item()
+                rank_ck = got.pop('checkpoint')
+                ck[f'rank{r}'] = rank_ck
+                check(rank_ck['slices_equal'], f'parallel_path {mesh_name} rank {r}: the '
+                      f'slices read back differ from its shard ({rank_ck})')
                 for stem, g in got.items():
                     want = single[stem]
                     equal = bool(np.array_equal(g['logits'], want['logits']))
@@ -2318,6 +2404,8 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
                               f"the single process's {want['top1']}, {want['top5']}")
                     if device.type == 'cuda':
                         launches.update(g['launches'])
+            check(ck['whole_equal'] and all(ck['slices_equal']),
+                  f'parallel_path {mesh_name} checkpoint: {ck}')
     report['launches'] = dict(launches)
     emit('parallel_path', card=card, **report)
     return report
@@ -2333,7 +2421,9 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
     ``w4a4_headline`` at ``golden_size`` and batch ``golden_batch`` on
     synthetic data, fake-quant launches counted; (3) ``fake_quant_ste`` at
     ``ste_shape`` per channel: forward equal to the plain version, gradient
-    equal to the plain clamp mask."""
+    equal to the plain clamp mask; (4) ``cost_analysis`` of one W8A8 serving
+    forward at ``golden_size`` and batch ``golden_batch``, its operations
+    equal to ``count_work``'s, its bytes beside that count's."""
     from cnn_quantization_tpu_torch.cli import golden_repro
     from cnn_quantization_tpu_torch.cli import kmeans_quantization as km
     from cnn_quantization_tpu_torch.ops.ste import fake_quant_ste, fake_quant_ste_mask
@@ -2433,8 +2523,164 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
           and ste_launches == 1,
           f"fake_quant_ste: {report['ste']}")
     launches['fake_quant'] += ste_launches
+
+    # (4) cost_analysis of one W8A8 serving forward beside count_work's count
+    model, eng8, sp, scales, batches = parallel_setup(device, arch, golden_size, golden_batch,
+                                                      False)
+    fwd = eng8.make_forward(quantized='serving_int8', act_scales=scales)
+    images = batches[0][0]
+    reset_route_launches()
+    t0 = time.perf_counter()
+    cost = cost_analysis(fwd, sp, None, images)
+    sync()
+    cost_s = time.perf_counter() - t0
+    ops, nbytes = count_work(model, lambda: fwd(sp, None, images))
+    report['cost_analysis'] = cost_rep = dict(
+        batch=golden_batch, input_size=golden_size, flops=cost['flops'],
+        bytes_accessed=cost['bytes accessed'], count_work_ops=ops, count_work_bytes=nbytes,
+        seconds=cost_s, launches=dict(+route_launches()),
+        predicted=dict(times(route_table(model), 2)))
+    check(cost['flops'] == ops > 0 and cost_rep['launches'] == cost_rep['predicted'],
+          f'cost_analysis against count_work: {cost_rep}')
+    launches += route_launches()
     report['launches'] = dict(launches)
     emit('tools_path', card=card, **report)
+    return report
+
+
+class HostReads(TorchDispatchMode):
+    """While active, counts the host's reads of tensor values: scalar reads
+    (``item``, ``float``, ``bool``: ``aten._local_scalar_dense``) and
+    copies from a CUDA tensor to the CPU."""
+
+    def __init__(self):
+        super().__init__()
+        self.reads = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.reads += 1
+        elif any(isinstance(t, torch.Tensor) and t.device.type == 'cuda'
+                 for t in tree_leaves((args, kwargs))) \
+                and any(isinstance(t, torch.Tensor) and t.device.type == 'cpu'
+                        for t in tree_leaves(out)):
+            self.reads += 1
+        return out
+
+
+class Preempted(Exception):
+    pass
+
+
+def preemptible(batches, reads, fail_at=None):
+    """(loader, marks): the batches from the host; ``marks`` gets
+    ``reads.reads`` at every request, the one that ends the loop included, so
+    ``marks[-1] - marks[0]`` is what the loop read; asked for batch
+    ``fail_at`` the loader raises ``Preempted``."""
+    marks = []
+
+    def gen():
+        for i, b in enumerate(batches):
+            marks.append(reads.reads)
+            if i == fail_at:
+                raise Preempted(f'batch {i}')
+            yield b
+        marks.append(reads.reads)
+    return gen(), marks
+
+
+RESUME_BATCHES, RESUME_FAIL_AT, RESUME_EVERY = 6, 3, 2
+
+
+def resume_path(device, card, arch='resnet50', size=224, batch=64):
+    """Eval-loop checkpoint/resume (``evaluate(resume_path=,
+    checkpoint_every=)``) under two recipes, the W4A4 headline with frozen
+    qparams (the fake-quant kernel at every site) and W8A8 serving with
+    frozen scales (the int8 GEMM and conv): ``RESUME_BATCHES`` seeded batches
+    from the host, each recipe run three times, every kernel count from 0 per
+    run: uninterrupted (no file, no read of a device value inside the loop);
+    interrupted, its loader raising when asked for batch ``RESUME_FAIL_AT``
+    with a checkpoint every ``RESUME_EVERY`` batches (the file then holds the
+    batches before the last checkpoint; the loop reads the four device sums
+    once a checkpoint); resumed from that file (top-1/top-5 equal to the
+    uninterrupted run's, the loss within 1e-6 relative, the file removed,
+    launches for the batches it ran and none for those it skipped).  The host
+    reads are counted in the first two runs only; the third is timed bare."""
+    wrappers = {'fake_quant': fq.fake_quant_fused, 'int8_gemm': im.int8_matmul_dequant,
+                'int8_conv': ic.int8_conv_dequant}
+    for fn in wrappers.values():
+        fn.launches = 0
+    model, meta = build_model(arch, device=device, seed=0)
+    params = dict(model.state_dict())
+    calib, *batches = synthetic_batches(batch, RESUME_BATCHES + 1, size=size, seed=4242)
+    sites = discover_sites(model, (1, 3, size, size))
+    _, gemm_per, conv_per = launch_table(model)
+    eng = QuantEngine(model, QuantPolicy(arch=arch, **HEADLINE), meta)
+    pq = eng.quantize_params(params)
+    stats = collect_statistics(eng.make_collect(), pq, [calib])
+    qparams = eng.freeze_qparams(stats, input_shape=(1, size, size, 3))
+    eng8 = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
+    sp = eng8.prepare_serving_params(eng8.quantize_params(params))
+    scales = eng8.freeze_serving_scales(sp, [calib], max_batches=1)
+    recipes = {
+        'w4a4_frozen': (eng, pq, dict(stats=stats, qparams=qparams),
+                        Counter(fake_quant=len(sites))),
+        'w8a8_serving': (eng8, sp, dict(quantized='serving_int8', act_scales=scales),
+                         Counter(int8_gemm=gemm_per, int8_conv=conv_per))}
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == 'cuda' else (lambda: None)
+    ran = {'uninterrupted': RESUME_BATCHES, 'interrupted': RESUME_FAIL_AT,
+           'resumed': RESUME_BATCHES - RESUME_FAIL_AT // RESUME_EVERY * RESUME_EVERY}
+    report = dict(arch=arch, input_size=size, batch=batch, batches=RESUME_BATCHES,
+                  fail_at=RESUME_FAIL_AT, checkpoint_every=RESUME_EVERY)
+    launches = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (e, p, kw, per_forward) in recipes.items():
+            path = os.path.join(tmp, f'{name}.json')
+            runs = {}
+            for run in ('uninterrupted', 'interrupted', 'resumed'):
+                reads = HostReads()
+                loader, marks = preemptible(batches, reads,
+                                            RESUME_FAIL_AT if run == 'interrupted' else None)
+                for fn in wrappers.values():
+                    fn.launches = 0
+                res = None
+                t0 = time.perf_counter()
+                with reads if run != 'resumed' else contextlib.nullcontext():
+                    try:
+                        res = evaluate(e, p, loader, **kw, checkpoint_every=RESUME_EVERY,
+                                       resume_path=None if run == 'uninterrupted' else path)
+                    except Preempted:
+                        pass
+                sync()
+                counted = Counter({k: fn.launches for k, fn in wrappers.items()})
+                runs[run] = entry = dict(wall_s=time.perf_counter() - t0,
+                                         launches=dict(+counted), file_left=os.path.exists(path),
+                                         predicted=dict(times(per_forward, ran[run])))
+                if run != 'resumed':
+                    entry['reads_in_loop'] = marks[-1] - marks[0]
+                if res is not None:
+                    entry.update(top1=res['top1'], top5=res['top5'], loss=res['loss'],
+                                 images_per_sec=res['images_per_sec'])
+                if run == 'interrupted' and entry['file_left']:
+                    with open(path) as f:
+                        entry['file'] = json.load(f)
+                launches += counted
+            full, cut, resumed = runs['uninterrupted'], runs['interrupted'], runs['resumed']
+            report[name] = runs
+            checkpointed = RESUME_FAIL_AT // RESUME_EVERY * RESUME_EVERY
+            check(all(r['launches'] == r['predicted'] for r in runs.values())
+                  and full['reads_in_loop'] == 0 and not full['file_left']
+                  and 'top1' not in cut and cut.get('file', {}).get('batches') == checkpointed
+                  and cut['file']['seen'] == checkpointed * batch
+                  and cut['reads_in_loop'] == 4 * (RESUME_FAIL_AT // RESUME_EVERY)
+                  and not resumed['file_left'],
+                  f'resume_path {name}: {runs}')
+            check(resumed['top1'] == full['top1'] and resumed['top5'] == full['top5']
+                  and abs(resumed['loss'] - full['loss']) <= 1e-6 * abs(full['loss']),
+                  f"resume_path {name}: resumed {resumed} against uninterrupted {full}")
+    report['launches'] = dict(launches)
+    emit('resume_path', card=card, **report)
     return report
 
 
@@ -2493,6 +2739,14 @@ def main():
     data = data_path(device, card)
     tools = tools_path(device, card)
     par = parallel_path(device, card)
+
+    # ---- slice 10: eval-loop resume (the checkpoints and cost_analysis ride
+    # in parallel_path and tools_path)
+    resume = resume_path(device, card)
+    check(resume['w4a4_frozen']['resumed']['predicted'] == {'fake_quant': 56 * 4}
+          and resume['w8a8_serving']['resumed']['predicted']
+          == {'int8_gemm': 34 * 4, 'int8_conv': 19 * 4},
+          f'resume_path per-forward tables: {resume}')
 
     # ---- main path 2: true-int8 serving through the int8 GEMM and conv kernels
     eng, sp, scales, pq, images, srep = drive_serving_path(device)
@@ -2579,21 +2833,29 @@ def main():
     timing['int4_gemm'] = int4_timing(device, card)
     copy = stream_copy_timing(device, card)
 
-    # launches of the slice-9 phases, each phase counted from 0: the .npz
-    # CLI run, the tools (k-means read-back, golden runbook, STE) and the
-    # parallel layer (one rank in process; each of the two-rank runs' ranks)
-    par_routes = Counter(par['launches'])
+    # launches of the slice-9 and slice-10 phases, each run counted from 0:
+    # the .npz CLI run, the tools (k-means read-back, golden runbook, STE,
+    # cost_analysis), the parallel layer (one rank in process with the
+    # checkpoint's two forwards; each of the two-rank runs' ranks) and the
+    # resume runs (both recipes, all three runs)
+    par_routes, tool_routes = Counter(par['launches']), Counter(tools['launches'])
+    gemm_routes, conv_routes = ('wgmma', 'mma_sync'), ('depthwise', 'im2col_wgmma',
+                                                       'implicit_gemm')
     slice9 = {
         'fake_quant': dict(data_launches=data['launches'],
-                           tools_launches=tools['launches'].get('fake_quant', 0),
-                           parallel_launches=par_routes['fake_quant']),
-        'int8_gemm': dict(data_launches=0, tools_launches=0,
-                          parallel_launches=par_routes['wgmma'] + par_routes['mma_sync']),
-        'int8_conv': dict(data_launches=0, tools_launches=0,
-                          parallel_launches=par_routes['depthwise'] + par_routes['im2col_wgmma']
-                          + par_routes['implicit_gemm']),
-        'int4_gemm': dict(data_launches=0, tools_launches=0, parallel_launches=0),
-        'stream_copy': dict(data_launches=0, tools_launches=0, parallel_launches=0),
+                           tools_launches=tool_routes['fake_quant'],
+                           parallel_launches=par_routes['fake_quant'],
+                           resume_launches=resume['launches'].get('fake_quant', 0)),
+        'int8_gemm': dict(data_launches=0, tools_launches=sum(tool_routes[r] for r in gemm_routes),
+                          parallel_launches=sum(par_routes[r] for r in gemm_routes),
+                          resume_launches=resume['launches'].get('int8_gemm', 0)),
+        'int8_conv': dict(data_launches=0, tools_launches=sum(tool_routes[r] for r in conv_routes),
+                          parallel_launches=sum(par_routes[r] for r in conv_routes),
+                          resume_launches=resume['launches'].get('int8_conv', 0)),
+        'int4_gemm': dict(data_launches=0, tools_launches=0, parallel_launches=0,
+                          resume_launches=0),
+        'stream_copy': dict(data_launches=0, tools_launches=0, parallel_launches=0,
+                            resume_launches=0),
     }
 
     def int8_row(name, source, replaces, launches, err):

@@ -2,13 +2,16 @@
 
 Port of ``cnn_quantization_tpu/engine/evaluate.py`` (reference
 inference_sim.py:278-343, ``validate``).  Top-k counts and the loss stay on
-the device and are read once, at the end (or at a verbose print), so the loop
-never waits on the card per batch.  On the card, each batch is timed with
-CUDA events around its step; on the CPU, with the host clock.
+the device and are read once, at the end (or at a verbose print, or at a
+checkpoint of a resumable run), so the loop never waits on the card per
+batch.  On the card, each batch is timed with CUDA events around its step; on
+the CPU, with the host clock.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Iterable, Mapping
 
@@ -69,22 +72,45 @@ def evaluate(engine: QuantEngine, params, batches: Iterable, *,
              stats: Mapping[str, Any] | None = None, quantized: bool | str = True,
              subset: int | None = None, print_freq: int = 10,
              verbose: bool = False, qparams=None, act_scales=None,
-             packed: bool = False) -> dict[str, float]:
+             packed: bool = False, resume_path: str | None = None,
+             checkpoint_every: int = 50) -> dict[str, float]:
     """Run the eval loop; returns {'top1', 'top5', 'loss', 'images_per_sec'
     [, 'avg_entropy']}.  ``subset`` stops after N images.  ``images_per_sec``
-    counts the images over the summed step times.
+    counts this run's images over the summed step times.
     ``quantized='serving_int8'`` runs the true-integer deployment path
-    (with frozen ``act_scales`` if given)."""
+    (with frozen ``act_scales`` if given).
+
+    ``resume_path``: a JSON checkpoint of the meters, the JAX package's
+    format (either package resumes the other's file), written every
+    ``checkpoint_every`` batches and removed when the run completes.  A run
+    restarted with the same path and a deterministic (unshuffled or
+    same-seed) loader skips the batches counted in it, without moving them to
+    the device, and continues the meters.  Only such a run reads the device's
+    sums inside the loop, once a checkpoint."""
     device = engine.device
     stats = stats_to_device(stats, device)
     step = make_eval_step(engine, quantized, qparams=qparams, act_scales=act_scales,
                           packed=packed)
     timer = _StepTimer(device)
     zero = torch.zeros((), dtype=torch.float64, device=device)
-    top1, top5, loss = zero.clone(), zero.clone(), zero.clone()
-    ent_sum, ent_weight = zero.clone(), 0.0
-    seen = 0
+    top1, top5, loss, ent_sum = (zero.clone() for _ in range(4))
+    ent_weight, seen, skip = 0.0, 0, 0
+    if resume_path and os.path.exists(resume_path):
+        with open(resume_path) as f:
+            ck = json.load(f)
+        skip, seen, ent_weight = ck['batches'], ck['seen'], ck['ent_weight']
+        # the file holds percent averages; a top-k sum is an integer count,
+        # so rounding restores it exactly
+        top1.fill_(round(ck['top1'] * seen / 100.0))
+        top5.fill_(round(ck['top5'] * seen / 100.0))
+        loss.fill_(ck['loss'] * seen)
+        ent_sum.fill_(ck['ent_sum'])
+        if verbose:
+            print(f'=> resuming eval at batch {skip} ({seen} images)')
+    seen_at_start = seen
     for i, (images, labels) in enumerate(batches):
+        if i < skip:
+            continue
         if subset is not None and seen >= subset:
             break
         timer.start()
@@ -105,10 +131,27 @@ def evaluate(engine: QuantEngine, params, batches: Iterable, *,
             print(f'Test: [{i}]\tLoss {float(loss) / seen:.4f}\t'
                   f'Prec@1 {100.0 * float(top1) / seen:.3f}\t'
                   f'Prec@5 {100.0 * float(top5) / seen:.3f}')
+        if resume_path and (i + 1) % checkpoint_every == 0:
+            _write_eval_checkpoint(resume_path, i + 1, seen, top1, top5, loss, ent_sum,
+                                   ent_weight)
     seconds = timer.seconds()
     seen_f = max(seen, 1)
     result = {'top1': 100.0 * float(top1) / seen_f, 'top5': 100.0 * float(top5) / seen_f,
-              'loss': float(loss) / seen_f, 'images_per_sec': seen / max(seconds, 1e-9)}
+              'loss': float(loss) / seen_f,
+              'images_per_sec': (seen - seen_at_start) / max(seconds, 1e-9)}
     if ent_weight > 0:
         result['avg_entropy'] = float(ent_sum) / ent_weight
+    if resume_path and os.path.exists(resume_path):
+        os.remove(resume_path)   # completed: clear the checkpoint
     return result
+
+
+def _write_eval_checkpoint(path, batches, seen, top1, top5, loss, ent_sum, ent_weight):
+    """The JAX package's ``_write_eval_checkpoint`` file (percent averages,
+    the average loss, the entropy sums), written whole or not at all."""
+    tmp = path + '.tmp'
+    with open(tmp, 'w') as f:
+        json.dump({'batches': batches, 'seen': seen, 'top1': 100.0 * float(top1) / seen,
+                   'top5': 100.0 * float(top5) / seen, 'loss': float(loss) / seen,
+                   'ent_sum': float(ent_sum), 'ent_weight': ent_weight}, f)
+    os.replace(tmp, path)

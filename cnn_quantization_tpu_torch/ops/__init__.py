@@ -5,4 +5,4 @@ from .quantizer import QuantConfig, quantize_activation, quantize_weight
 from .bit_alloc import get_omega, get_bits_alloc, get_bits_alloc_fixed_target
 from .bias_corr import weight_correction, activation_bias_correction
 from .entropy import shannon_entropy, most_frequent_value_compression
-from . import aciq, stats
+from . import aciq, stats, mid_tread

@@ -16,11 +16,14 @@ JAX package's ``utils/checkpoint.py`` :31-40 (the tree its
 ``save_params_npz`` writes, keys joined by '/'); the CLI converts such a tree
 with ``utils/flax_params.state_dict_from_flax``.  ``save_params_npz`` (:25-28)
 writes such a tree (``utils/flax_params.flax_from_state_dict`` makes one from
-a state dict).
+a state dict).  ``save_params_sharded``/``load_params_sharded`` are the
+counterpart of ``save_params_orbax``/``load_params_orbax`` (:42-51, for
+large sharded checkpoints), on ``torch.distributed.checkpoint`` (DCP).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Mapping
 
@@ -163,3 +166,129 @@ def save_params_npz(path: str, params: Mapping[str, Any]):
     by '/'), which ``load_params_npz`` of either package reads."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez_compressed(path, **dict(_flatten(params)))
+
+
+def _first_rows(params: Mapping[str, torch.Tensor], mesh, model, rows_per_rank):
+    """{name: first row of this rank's slice} of the entries a model axis
+    splits along axis 0 (``parallel.param_sharding``'s rule); ``{}`` without
+    a mesh or on a mesh without a model axis."""
+    if mesh is None or mesh.model == 1:
+        return {}
+    if model is None:
+        raise ValueError('a mesh with a model axis needs the model: its modules say which '
+                         'entries the axis splits')
+    from ..parallel.mesh import param_sharding
+    spec = param_sharding(mesh, params, model)
+    return {k: mesh.model_index * rows_per_rank(params[k]) for k, s in spec.items()
+            if s == 'model'}
+
+
+def _offsets(first_row: int, ndim: int) -> torch.Size:
+    return torch.Size(([first_row] + [0] * ndim)[:ndim])
+
+
+def _slice_planners():
+    """DCP's default planners with each entry placed by its first row: a
+    rank's slice of a model-axis entry is written and read as its chunk of
+    the full tensor.  (The default save planner treats every plain tensor as
+    replicated and writes it from one rank, which would keep one slice.)"""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import (ChunkStorageMetadata, MetadataIndex,
+                                                       TensorProperties)
+    from torch.distributed.checkpoint.planner import (LoadPlan, SavePlan, TensorWriteData,
+                                                      WriteItem, WriteItemType)
+    from torch.distributed.checkpoint.planner_helpers import create_read_items_for_chunk_list
+
+    class SlicePlanner(dcp.DefaultSavePlanner):
+        def __init__(self, first_rows, slices):
+            super().__init__(flatten_state_dict=False)
+            self.first_rows, self.slices = first_rows, slices
+
+        def create_local_plan(self):
+            self.plan = SavePlan([self._item(k, t) for k, t in self.state_dict.items()])
+            return self.plan
+
+        def _item(self, name, t):
+            offsets = _offsets(self.first_rows.get(name, 0), t.ndim)
+            size = t.shape
+            if name in self.first_rows:
+                size = torch.Size((t.shape[0] * self.slices,) + t.shape[1:])
+            channels_last = t.ndim == 4 and not t.is_contiguous() \
+                and t.is_contiguous(memory_format=torch.channels_last)
+            props = dataclasses.replace(
+                TensorProperties.create_from_tensor(t),
+                memory_format=torch.channels_last if channels_last else torch.contiguous_format)
+            return WriteItem(index=MetadataIndex(name, offsets),
+                             type=WriteItemType.SHARD if name in self.first_rows
+                             else WriteItemType.TENSOR,
+                             tensor_data=TensorWriteData(
+                                 chunk=ChunkStorageMetadata(offsets, t.shape),
+                                 properties=props, size=size))
+
+        def lookup_object(self, index):
+            return self.state_dict[index.fqn]
+
+    class SliceLoadPlanner(dcp.DefaultLoadPlanner):
+        def __init__(self, first_rows):
+            super().__init__(flatten_state_dict=False)
+            self.first_rows = first_rows
+
+        def create_local_plan(self):
+            items = []
+            for name, t in self.state_dict.items():
+                chunk = ChunkStorageMetadata(_offsets(self.first_rows.get(name, 0), t.ndim),
+                                             t.shape)
+                items += create_read_items_for_chunk_list(
+                    name, self.metadata.state_dict_metadata[name], [chunk])
+            return LoadPlan(items)
+
+        def lookup_tensor(self, index):
+            return self.state_dict[index.fqn]
+
+    return dcp, SlicePlanner, SliceLoadPlanner
+
+
+def save_params_sharded(path: str, params: Mapping[str, torch.Tensor], mesh=None, model=None):
+    """Write a flat parameter dict as a DCP checkpoint directory ``path``.
+    Under a mesh with a model axis, ``params`` are this rank's
+    (``parallel.shard_params``): each slice is written as its rows of the
+    full tensor, so the checkpoint holds every full tensor once, whatever the
+    mesh, and an entry replicated over ranks is written by one of them.
+    Under a process group every rank calls it; with one rank, or none, it
+    writes alone.  Each entry keeps its dtype, values and (4-D) memory
+    format."""
+    from ..parallel.mesh import Mesh, world
+    dcp, planner, _ = _slice_planners()
+    bad = [k for k, v in params.items() if not isinstance(v, torch.Tensor)]
+    if bad:
+        raise TypeError(f'only tensors can be saved, not the values of {bad[:5]}')
+    mesh = mesh or Mesh()
+    first_rows = _first_rows(params, mesh, model, lambda t: t.shape[0])
+    dcp.save(dict(params), storage_writer=dcp.FileSystemWriter(path),
+             planner=planner(first_rows, mesh.model), no_dist=world()[1] == 1)
+
+
+def load_params_sharded(path: str, mesh=None, model=None, device=None) -> dict[str, torch.Tensor]:
+    """The parameters of a ``save_params_sharded`` checkpoint as fresh
+    tensors on ``device`` (the card unless ``'cpu'``), each in its saved
+    dtype and memory format: the full tensors without a mesh (or on one
+    without a model axis), this rank's slices on a mesh with one (equal to
+    ``parallel.shard_params`` of the full tensors).  Each rank reads its own
+    part; no collective runs."""
+    from ..parallel.mesh import Mesh
+    from .device import resolve_device
+    dcp, _, planner = _slice_planners()
+    reader = dcp.FileSystemReader(path)
+    md = reader.read_metadata().state_dict_metadata
+    mesh = mesh or Mesh()
+    full = {k: torch.empty(m.size, dtype=m.properties.dtype, device='meta') for k, m in md.items()}
+    first_rows = _first_rows(full, mesh, model, lambda t: t.shape[0] // mesh.model)
+    dev = resolve_device(device)
+    out = {}
+    for k, m in md.items():
+        shape = m.size if k not in first_rows else (m.size[0] // mesh.model,) + m.size[1:]
+        out[k] = torch.empty(shape, dtype=m.properties.dtype, device=dev,
+                             memory_format=getattr(m.properties, 'memory_format',
+                                                   torch.contiguous_format))
+    dcp.load(out, storage_reader=reader, planner=planner(first_rows), no_dist=True)
+    return out

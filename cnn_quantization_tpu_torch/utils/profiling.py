@@ -13,7 +13,10 @@ forward really saw,
 
 The count is of the work, not of an implementation: what runs inside a kernel
 wrapper (the kernel on the card, its plain version on the CPU) is not looked
-into, so the card and the CPU count the same.
+into, so the card and the CPU count the same.  ``cost_analysis(fn, *args)``,
+the counterpart of the JAX function of that name, counts one call of any
+function the same way: operations by ``torch.utils.flop_counter`` and from
+the kernel wrappers' shapes, bytes as above.
 
 ``roofline_report`` holds a measured rate against the card's published peaks;
 ``per_op_profile`` is ``torch.profiler``'s device self-time by kernel name;
@@ -30,7 +33,7 @@ import math
 import time
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils._pytree import tree_leaves
 
 # per-card peaks, dense (NVIDIA's H100 SXM data sheet: 700 W power limit)
@@ -143,21 +146,35 @@ def _kernel_wrappers():
             (int4_matmul, 'int4_matmul'))
 
 
+def _wrapper_ops(name, args, out) -> int:
+    """2·M·N·K of one call of the kernel wrapper ``name``, from its shapes
+    (the elementwise fake-quant wrappers: none)."""
+    if name in ('int8_matmul_dequant', 'int4_matmul'):
+        return 2 * args[0].shape[0] * args[1].shape[0] * args[1].shape[1]
+    if name == 'int8_conv_dequant':
+        return 2 * out.numel() * math.prod(args[1].shape[1:])
+    return 0
+
+
 @contextlib.contextmanager
-def _observed(module, name, counter):
-    """While active, ``module.name`` counts its operands and output once and
-    hides what it runs inside from ``counter``."""
+def _observed(module, name, counter, ops=False):
+    """While active, ``module.name`` counts its operands and output once (and
+    with ``ops`` its 2·M·N·K) and hides what it runs inside from ``counter``
+    and every other dispatch mode."""
     real = getattr(module, name)
 
     @functools.wraps(real)
     def call(*args, **kwargs):
         counter.paused += 1
         try:
-            out = real(*args, **kwargs)
+            with _disable_current_modes():
+                out = real(*args, **kwargs)
         finally:
             counter.paused -= 1
         if not counter.paused:
             counter.add_call((args, kwargs), out)
+            if ops:
+                counter.add_ops(_wrapper_ops(name, args, out))
         return out
 
     setattr(module, name, call)
@@ -196,6 +213,23 @@ def count_work(model, fn):
         for h in hooks:
             h.remove()
     return counter.ops, counter.bytes
+
+
+def cost_analysis(fn, *args) -> dict[str, float]:
+    """{'flops', 'bytes accessed'} of one call ``fn(*args)``, which runs: the
+    operations ``torch.utils.flop_counter.FlopCounterMode`` counts (2 x the
+    multiply-accumulates of each conv and matmul operator) plus 2·M·N·K of
+    each kernel-wrapper call from its shapes, and the bytes ``count_work``
+    counts.  On a model's forward the operations equal ``count_work``'s."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = WorkCounter()
+    with contextlib.ExitStack() as stack:
+        for module, name in _kernel_wrappers():
+            stack.enter_context(_observed(module, name, counter, ops=True))
+        with FlopCounterMode(display=False) as flops, counter:
+            fn(*args)
+    return {'flops': float(flops.get_total_flops() + counter.ops),
+            'bytes accessed': float(counter.bytes)}
 
 
 def roofline_report(model, fn, calls_per_sec: float, *, int8: bool = False, device=None):

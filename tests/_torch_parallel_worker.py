@@ -9,7 +9,10 @@ Every rank builds the same seeded ResNet-18 at 64x64 (the JAX package's
 tests/test_parallel.py set-up), runs ``scenarios`` on a (data, model) mesh
 of the gloo process group and rank 0 writes the results.  The test runs
 ``scenarios`` on one process (no process group, the 1x1 mesh) for the
-reference.  Imports nothing of the JAX package.
+reference.  With a seventh argument ``checkpoint`` (tests/test_torch_
+checkpoint_sharded.py) every rank instead saves its shard of the W8A8
+serving tree (``serving_tree``) into the DCP directory <out> and checks that
+its slices read back equal.  Imports nothing of the JAX package.
 """
 
 import os
@@ -92,12 +95,36 @@ def sharded(eng, params, mesh, batch, *, quantized=True, stats=None, qparams=Non
             'logits': gather_batch(out['logits'], mesh).numpy()}
 
 
+def serving_tree():
+    """(model, W8A8 serving params) of the seeded ResNet-18 at 64x64: int8
+    codes (4-D in channels_last memory), float32 scales and the float stem."""
+    model, meta = build_model(ARCH, device='cpu', seed=0, input_size=SIZE)
+    eng = QuantEngine(model, QuantPolicy(arch=ARCH, qtype='int8', qweight='int8'), meta)
+    return model, eng.prepare_serving_params(eng.quantize_params(dict(model.state_dict())))
+
+
+def save_shard(mesh, path):
+    from chip_smoke import same_tree
+    from cnn_quantization_tpu_torch.utils.checkpoint import (load_params_sharded,
+                                                             save_params_sharded)
+    torch.set_num_threads(1)
+    model, sp = serving_tree()
+    mine = shard_params(sp, mesh, model)
+    save_params_sharded(path, mine, mesh, model)
+    if not same_tree(load_params_sharded(path, mesh, model, device='cpu'), mine):
+        raise AssertionError(f'rank {mesh.model_index}: its slices read back differ')
+
+
 def main():
     import torch.distributed as dist
     from cnn_quantization_tpu_torch.parallel.distributed import init_distributed
     init_method, world, rank, data, model, out_path = sys.argv[1:7]
     assert init_distributed(init_method, int(world), int(rank), backend='gloo')
     mesh = make_mesh(data=int(data), model=int(model))
+    if sys.argv[7:] == ['checkpoint']:
+        save_shard(mesh, out_path)
+        dist.destroy_process_group()
+        return
     results = scenarios(mesh)
     if dist.get_rank() == 0:
         np.savez(out_path, **{f'{name}|{k}': np.asarray(v) for name, entry in results.items()

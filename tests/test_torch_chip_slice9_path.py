@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s slice-9 phases (``data_path``, ``parallel_path``,
-``tools_path``) rehearsed on the CPU at 64x64: every run, check and launch
+``tools_path``, with slice 10's sharded checkpoints and ``cost_analysis``)
+rehearsed on the CPU at 64x64: every run, check and launch
 prediction of the phases, with stand-ins for the kernels' launches (the plain
 version's result, counted by mode or route as the kernel's own wrapper
 counts; ``tests/test_torch_chip_zoo_path.py``).  The two-rank runs of
@@ -43,6 +44,9 @@ def test_tools_path_phase_on_cpu(stand_in_kernels, capsys, monkeypatch):  # noqa
     assert rep['golden']['smoke']['configs'] == ['w4a4_headline',
                                                  'w4a4_headline_offline_stats']
     assert rep['ste']['launches'] == 1
+    cost = rep['cost_analysis']     # slice 10: one W8A8 serving forward
+    assert cost['flops'] == cost['count_work_ops'] > 0
+    assert cost['bytes_accessed'] == cost['count_work_bytes']
     assert _phase(capsys.readouterr().out, 'tools_path')['launches'] == rep['launches']
 
 
@@ -61,4 +65,9 @@ def test_parallel_path_phase_on_cpu(stand_in_kernels, capsys):  # noqa: F811
             # ResNet-18 at 64x64: the s2d stem on the implicit GEMM, 16 3x3 convs
             # and 3 strided 1x1 downsamples on the im2col route, the classifier
             assert s2d['predicted'] == {'implicit_gemm': 2, 'im2col_wgmma': 38, 'wgmma': 2}
+        # slice 10: the ranks' DCP checkpoint, whole and by model index
+        ck = entry['checkpoint']
+        assert ck['whole_equal'] and ck['slices_equal'] == [True] * int(mesh[-1])
+        assert ck['rank0']['slices_equal'] and ck['rank1']['slices_equal']
+    assert one['backend'] == 'gloo' and rep['checkpoint_one_rank']['logits_equal']
     assert _phase(capsys.readouterr().out, 'parallel_path')['batch'] == 4
