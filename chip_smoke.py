@@ -63,6 +63,14 @@ two serving paths run at batch 64:
     3 with a checkpoint every 2 batches, and resumed: top-1/top-5 equal,
     launches only for the batches run, no device value read inside the
     uninterrupted loop;
+  * the recipes' accuracy ordering (phase ``accuracy_path``): the JAX
+    package's ordering test on the port, its ResNet-18 trained on the card
+    (1000 Adam steps at batch 128 on its synthetic heavy-tailed task), its
+    six golden configurations through ``inference_sim`` on 2048 images at
+    batch 256 (launches by mode and route against the tables), one batch
+    through the kernels and their plain versions, fp32 and W8A8 serving
+    again on the CPU; the six assertions of the JAX test and card-vs-CPU
+    top-1 within 0.2 points;
   * the throughput bench (``python3 -m cnn_quantization_tpu_torch.bench``):
     ResNet-50 with bfloat16 activations at batch 128 (W4A4 simulation, bf16
     baseline, W8A8 serving, W4A4 serving plain and packed), the batch sweep,
@@ -81,9 +89,9 @@ to the model's modules, and ``int8_timing``/``int4_timing`` time each timed
 shape on its route and on the mma.sync route beside it.
 
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
-(each path's launches; the slice-9 and slice-10 phases' as
-``data_launches``, ``tools_launches``, ``parallel_launches`` and
-``resume_launches``) and ``{"ok": true, "device":
+(each path's launches; the slice-9 to slice-11 phases' as
+``data_launches``, ``tools_launches``, ``parallel_launches``,
+``resume_launches`` and ``accuracy_launches``) and ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero before those lines.  Without a CUDA
 device, or without the rest of the repository,
 it exits non-zero and prints no result.
@@ -404,11 +412,14 @@ def drive_main_path(device, *, arch='resnet50', size=224, batch=64, eval_batches
 
 def end_to_end_kernel_vs_plain(engine, params_q, qparams, stats, images):
     """The same params and batch through the port with the kernel and with
-    the plain version, deterministic cuDNN: argmax equal, logits within 1e-3."""
+    the plain version, deterministic cuDNN: argmax equal, logits within 1e-3;
+    frozen (``qparams``, ``stats``) and dynamic, or dynamic alone without
+    ``qparams``."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     out = {}
-    for name, kw, st in (('frozen', dict(qparams=qparams), stats), ('dynamic', {}, None)):
+    runs = (('frozen', dict(qparams=qparams), stats), ('dynamic', {}, None))
+    for name, kw, st in runs[qparams is None:]:
         fwd = engine.make_forward(**kw)
         kern, _ = fwd(params_q, st, images)
         with mock.patch.object(fq, 'fake_quant_fused', fq.fake_quant_fused_plain), \
@@ -745,6 +756,7 @@ def kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=False, to
     emit(phase, **out)
     check(out['argmax_equal'] and out['rel_err'] <= tol and out['plain_run_launched_no_kernel'],
           f'{phase}: {out}')
+    return out
 
 
 def profile_frozen_step(engine, params_q, qparams, stats, images):
@@ -2684,6 +2696,214 @@ def resume_path(device, card, arch='resnet50', size=224, batch=64):
     return report
 
 
+# ---------------------------------------------------------------- slice 11: accuracy ordering
+
+# the JAX package's tests/test_accuracy_ordering.py, copied: its task, its
+# training recipe, its six golden configurations and its thresholds
+ORDERING_ARCH, ORDERING_SIZE = 'resnet18', 32
+ORDERING_CONFIGS = {
+    'fp32': ['--q_off'],
+    'w8a8': ['--qtype', 'int8', '-qw', 'int8'],
+    'naive_w4a4': ['-pcq_w', '-pcq_a', '--qtype', 'int4', '-qw', 'int4'],
+    'headline': ['-pcq_w', '-pcq_a', '--qtype', 'int4', '-qw', 'int4',
+                 '-c', 'laplace', '-baa', '-baw', '-bcw'],
+    '2std': ['--qtype', 'int4', '-qw', 'int8', '-c', '2std'],
+    'w8a8_serving': ['--qtype', 'int8', '-qw', 'int8', '--serving_int8'],
+}
+# the top-1 points within which the card and the CPU must agree: 4 of 2048
+# images (the integer sums are exact; a float-stem rounding tie can move an
+# argmax)
+CARD_VS_CPU_TOP1 = 0.2
+
+
+def smooth_prototypes(rs, n, size, ch):
+    """Random smooth class prototypes via low-frequency Fourier synthesis."""
+    k = 6
+    coeff = rs.randn(n, k, k, ch) + 1j * rs.randn(n, k, k, ch)
+    spec = np.zeros((n, size, size, ch), np.complex64)
+    spec[:, :k, :k, :] = coeff
+    img = np.fft.ifft2(spec, axes=(1, 2)).real.astype(np.float32)
+    img /= img.std(axis=(1, 2, 3), keepdims=True) + 1e-8
+    return img
+
+
+def make_dataset(seed=0, n_classes=100, n_train=4000, n_test=2048, amp=0.25, size=32):
+    """The ordering task, ((x_train, y_train), (x_test, y_test)), NHWC float32
+    images and int32 labels, bit for bit the JAX ordering test's: a low-SNR
+    matched filter (x = amp * prototype[class] + noise) with per-sample gain
+    jitter and 0.5 % outlier pixels at +-8 (heavy tails)."""
+    rs = np.random.RandomState(seed)
+    protos = smooth_prototypes(rs, n_classes, size, 3)
+
+    def draw(n, seed2):
+        r2 = np.random.RandomState(seed2)
+        y = r2.randint(0, n_classes, n).astype(np.int32)
+        x = amp * protos[y] + r2.randn(n, size, size, 3).astype(np.float32)
+        gain = np.exp(0.5 * r2.randn(n, 1, 1, 1)).astype(np.float32)
+        x = x * gain
+        mask = r2.rand(*x.shape) < 0.005  # outlier pixels (heavy tails)
+        x = np.where(mask, 8.0 * np.sign(r2.randn(*x.shape)).astype(np.float32), x)
+        return x.astype(np.float32), y
+
+    return draw(n_train, seed + 1), draw(n_test, seed + 2)
+
+
+def train_ordering_net(device, steps=1000, batch=128, lr=1e-3, seed=0, init=None):
+    """The JAX ordering test's ``_train`` on the port: the registry's
+    ResNet-18 (BN folded: no BN layer, 1000-way head), seeded truncated
+    He-normal init (or the state dict ``init``), Adam (0.9, 0.999, 1e-8),
+    mean softmax cross-entropy on the float path in float32 (no TF32), batch
+    indices from ``RandomState(seed)``.  The module is trained directly, with
+    autograd through cuDNN/cuBLAS.  Returns (model, meta, (x_test, y_test),
+    report)."""
+    import torch.nn.functional as F
+    from cnn_quantization_tpu_torch.engine.context import TapContext
+    (xtr, ytr), test = make_dataset(seed)
+    model, meta = build_model(ORDERING_ARCH, device=device, seed=seed)
+    if init is not None:
+        model.load_state_dict(init)
+    images = torch.as_tensor(xtr, device=device)
+    labels = torch.as_tensor(ytr, dtype=torch.long, device=device)
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    rs = np.random.RandomState(seed)
+    losses = torch.empty(steps, device=device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        idx = torch.as_tensor(rs.randint(0, len(xtr), batch), device=device)
+        logits = model(images[idx].permute(0, 3, 1, 2), TapContext())
+        loss = F.cross_entropy(logits, labels[idx])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses[i] = loss.detach()
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    report = dict(steps=steps, batch=batch, lr=lr, seed=seed,
+                  train_s=time.perf_counter() - t0,
+                  first_loss=float(losses[0]), last10_loss=float(losses[-10:].mean()))
+    return model.eval(), meta, test, report
+
+
+def ordering_predictions(model, params, policy, serving, n_batches, cal_batches):
+    """(fake-quant launches by mode, integer launches by route) of one CLI
+    run of the ordering task: the weight pass, then per evaluated batch the
+    dynamic sites by their quantizer's branch; on the serving path instead
+    one integer forward per calibration and per evaluated batch."""
+    if policy.qtype is None:
+        return Counter(), Counter()
+    modes = predicted_weight_modes(policy, params)
+    if serving:
+        return modes, times(route_table(model), cal_batches + n_batches)
+    sites = discover_sites(model, (1, 3, ORDERING_SIZE, ORDERING_SIZE))
+    return modes + times_counter(predicted_site_modes(policy, sites), n_batches), Counter()
+
+
+def accuracy_path(device, card, steps=1000, n_test=2048, batch=256):
+    """The recipes' accuracy ordering on a network the port trained: the JAX
+    ordering test's ResNet-18 trained on the card (``train_ordering_net``),
+    its weights written as the JAX package's ``.npz`` and its test set as
+    ``images``/``labels``, then the six golden configurations through
+    ``inference_sim`` on the card, each in a HOME and working directory of
+    its own: top-1, top-5, loss, wall seconds and images/s; the fake-quant
+    launches by mode and the integer launches by route against the site and
+    route tables.  Then one batch of the trained network through the kernels
+    and their plain versions (the headline's dynamic simulation; W8A8 serving
+    with the CLI's frozen scales), and ``fp32`` and ``w8a8_serving`` once
+    more on the CPU from the same files.  The ordering itself is checked by
+    ``main``.  Returns the report."""
+    from cnn_quantization_tpu_torch.cli import inference_sim
+    from cnn_quantization_tpu_torch.utils.checkpoint import save_params_npz
+    from cnn_quantization_tpu_torch.utils.flax_params import flax_from_state_dict
+    # deterministic cuDNN algorithms: the same trained network run after run
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    t0 = time.perf_counter()
+    model, meta, (xte, yte), train = train_ordering_net(device, steps=steps)
+    xte, yte = xte[:n_test], yte[:n_test]
+    params = {k: v.detach() for k, v in model.state_dict().items()}
+    n_batches = -(-n_test // batch)
+    cal_batches = min(n_batches, 4)   # freeze_serving_scales' max_batches
+    wrappers = {'fake_quant': fq.fake_quant_fused, 'int8_gemm': im.int8_matmul_dequant,
+                'int8_conv': ic.int8_conv_dequant}
+    report = dict(arch=ORDERING_ARCH, input_size=ORDERING_SIZE, eval_batch=batch,
+                  images=n_test, train=train, configs={}, cpu={})
+    launches = Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath, dpath = os.path.join(tmp, 'resnet18_syn.npz'), os.path.join(tmp, 'eval.npz')
+        save_params_npz(wpath, flax_from_state_dict(params, ORDERING_ARCH))
+        np.savez(dpath, images=xte, labels=yte)
+        base = ['-a', ORDERING_ARCH, '-b', str(batch), '--data', dpath, '--weights', wpath]
+
+        def run_cli(name, dev):
+            with tempfile.TemporaryDirectory(dir=tmp) as home, contextlib.chdir(home), \
+                    mock.patch.dict(os.environ, {'HOME': home}):
+                for fn in wrappers.values():
+                    fn.launches = 0
+                reset_route_launches()
+                run = cli_run(base + ORDERING_CONFIGS[name] + ['--device', dev])
+            res = run['res']
+            entry = dict(top1=res['top1'], top5=res['top5'], loss=res['loss'],
+                         wall_s=run['wall_s'], images_per_sec=res['images_per_sec'])
+            check(not any('random init' in ln for ln in run['lines'])
+                  and np.isfinite([res['top1'], res['top5'], res['loss']]).all(),
+                  f'accuracy_path {name} on {dev}: {entry}')
+            return entry, run
+
+        for name, flags in ORDERING_CONFIGS.items():
+            entry, run = run_cli(name, device.type)
+            counted = Counter({k: fn.launches for k, fn in wrappers.items()})
+            routes = +route_launches()
+            args = inference_sim.build_parser().parse_args(base + flags)
+            policy = (QuantPolicy(qtype=None, arch=ORDERING_ARCH) if args.q_off
+                      else inference_sim.policy_from_args(args))
+            modes, route_pred = ordering_predictions(model, params, policy, args.serving_int8,
+                                                     n_batches, cal_batches)
+            entry.update(launches=dict(+counted), fake_quant_modes=dict(run['modes']),
+                         predicted_fake_quant_modes=dict(modes), routes=dict(routes),
+                         predicted_routes=dict(route_pred))
+            report['configs'][name] = entry
+            check(run['modes'] == modes and counted['fake_quant'] == sum(modes.values())
+                  and routes == route_pred
+                  and counted['int8_gemm'] + counted['int8_conv'] == sum(route_pred.values())
+                  and (policy.qtype is None) == (sum(counted.values()) == 0),
+                  f'accuracy_path {name}: launches {entry}')
+            launches += counted
+
+        # one batch of the trained network through the kernels and their
+        # plain versions
+        images = xte[:batch]
+        eng = QuantEngine(model, QuantPolicy(arch=ORDERING_ARCH, **HEADLINE), meta)
+        report['headline_kernel_vs_plain'] = end_to_end_kernel_vs_plain(
+            eng, eng.quantize_params(params), None, None, images)
+        eng8 = QuantEngine(model, QuantPolicy(arch=ORDERING_ARCH, **W8A8), meta)
+        sp = eng8.prepare_serving_params(eng8.quantize_params(params))
+        scales = eng8.freeze_serving_scales(
+            sp, [(xte[i:i + batch], yte[i:i + batch]) for i in range(0, n_test, batch)])
+        report['serving_kernel_vs_plain'] = kernels_vs_plain_end_to_end(
+            'accuracy_serving_kernels_vs_plain_end_to_end', eng8, sp, scales, images)
+        del eng, eng8, sp
+
+        # the card against the CPU, from the same two files
+        for name in ('fp32', 'w8a8_serving'):
+            report['cpu'][name], _ = run_cli(name, 'cpu')
+    report.update(launches=dict(launches), wall_s=time.perf_counter() - t0)
+    emit('accuracy_path', card=card, **report)
+    return report
+
+
+def ordering_holds(top1):
+    """The JAX ordering test's six assertions on the six configs' top-1
+    (tests/test_accuracy_ordering.py): {assertion: holds}."""
+    return {
+        'fp32 > 70': top1['fp32'] > 70.0,
+        'w8a8 > fp32 - 2': top1['w8a8'] > top1['fp32'] - 2.0,
+        'w8a8_serving > w8a8 - 1.5': top1['w8a8_serving'] > top1['w8a8'] - 1.5,
+        'headline > naive_w4a4': top1['headline'] > top1['naive_w4a4'],
+        'naive_w4a4 > 2std + 2': top1['naive_w4a4'] > top1['2std'] + 2.0,
+        'naive_w4a4 < fp32 - 3': top1['naive_w4a4'] < top1['fp32'] - 3.0,
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2747,6 +2967,15 @@ def main():
           and resume['w8a8_serving']['resumed']['predicted']
           == {'int8_gemm': 34 * 4, 'int8_conv': 19 * 4},
           f'resume_path per-forward tables: {resume}')
+
+    # ---- slice 11: the recipes' accuracy ordering on a ResNet-18 trained on the card
+    acc = accuracy_path(device, card)
+    top1 = {name: c['top1'] for name, c in acc['configs'].items()}
+    held = ordering_holds(top1)
+    check(all(held.values()), f'accuracy ordering on the card-trained ResNet-18: {held}, '
+          f'top-1 {top1}')
+    check(all(abs(c['top1'] - top1[name]) <= CARD_VS_CPU_TOP1 for name, c in acc['cpu'].items()),
+          f"accuracy_path top-1 card {top1} against the CPU {acc['cpu']}")
 
     # ---- main path 2: true-int8 serving through the int8 GEMM and conv kernels
     eng, sp, scales, pq, images, srep = drive_serving_path(device)
@@ -2833,11 +3062,12 @@ def main():
     timing['int4_gemm'] = int4_timing(device, card)
     copy = stream_copy_timing(device, card)
 
-    # launches of the slice-9 and slice-10 phases, each run counted from 0:
-    # the .npz CLI run, the tools (k-means read-back, golden runbook, STE,
-    # cost_analysis), the parallel layer (one rank in process with the
-    # checkpoint's two forwards; each of the two-rank runs' ranks) and the
-    # resume runs (both recipes, all three runs)
+    # launches of the slice-9, slice-10 and slice-11 phases, each run counted
+    # from 0: the .npz CLI run, the tools (k-means read-back, golden runbook,
+    # STE, cost_analysis), the parallel layer (one rank in process with the
+    # checkpoint's two forwards; each of the two-rank runs' ranks), the
+    # resume runs (both recipes, all three runs) and the ordering's six CLI
+    # runs on the card
     par_routes, tool_routes = Counter(par['launches']), Counter(tools['launches'])
     gemm_routes, conv_routes = ('wgmma', 'mma_sync'), ('depthwise', 'im2col_wgmma',
                                                        'implicit_gemm')
@@ -2845,17 +3075,20 @@ def main():
         'fake_quant': dict(data_launches=data['launches'],
                            tools_launches=tool_routes['fake_quant'],
                            parallel_launches=par_routes['fake_quant'],
-                           resume_launches=resume['launches'].get('fake_quant', 0)),
+                           resume_launches=resume['launches'].get('fake_quant', 0),
+                           accuracy_launches=acc['launches'].get('fake_quant', 0)),
         'int8_gemm': dict(data_launches=0, tools_launches=sum(tool_routes[r] for r in gemm_routes),
                           parallel_launches=sum(par_routes[r] for r in gemm_routes),
-                          resume_launches=resume['launches'].get('int8_gemm', 0)),
+                          resume_launches=resume['launches'].get('int8_gemm', 0),
+                          accuracy_launches=acc['launches'].get('int8_gemm', 0)),
         'int8_conv': dict(data_launches=0, tools_launches=sum(tool_routes[r] for r in conv_routes),
                           parallel_launches=sum(par_routes[r] for r in conv_routes),
-                          resume_launches=resume['launches'].get('int8_conv', 0)),
+                          resume_launches=resume['launches'].get('int8_conv', 0),
+                          accuracy_launches=acc['launches'].get('int8_conv', 0)),
         'int4_gemm': dict(data_launches=0, tools_launches=0, parallel_launches=0,
-                          resume_launches=0),
+                          resume_launches=0, accuracy_launches=0),
         'stream_copy': dict(data_launches=0, tools_launches=0, parallel_launches=0,
-                            resume_launches=0),
+                            resume_launches=0, accuracy_launches=0),
     }
 
     def int8_row(name, source, replaces, launches, err):

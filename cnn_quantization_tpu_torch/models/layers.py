@@ -107,6 +107,20 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
+# the std of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def he_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """Flax's ``he_normal`` (``variance_scaling(2.0, 'fan_in',
+    'truncated_normal')``), the JAX package's conv and dense init: a normal
+    truncated at two of its standard deviations, scaled so that the draw's
+    std is sqrt(2 / fan_in).  ``fan_in`` is every axis of ``weight`` but the
+    first (OIHW, or ``[out, in]``)."""
+    std = (2.0 / weight[0].numel()) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 def _tap(ctx: TapContext, y, site: Site | None):
     return ctx.tap(y, site) if site is not None else y
 
@@ -154,9 +168,7 @@ class QConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator):
-        # He-normal (fan_in), as the JAX package's he_normal init
-        nn.init.kaiming_normal_(self.weight, mode='fan_in', nonlinearity='relu',
-                                generator=generator)
+        he_normal_(self.weight, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -356,8 +368,7 @@ class QLinear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator):
-        nn.init.kaiming_normal_(self.weight, mode='fan_in', nonlinearity='relu',
-                                generator=generator)
+        he_normal_(self.weight, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -498,8 +509,9 @@ def run_all(mods, x, ctx: TapContext):
 
 
 def init_parameters(model: nn.Module, seed: int):
-    """Seeded He-normal init of every conv and linear, in module order, from
-    one CPU ``torch.Generator`` (the same weights whatever the device)."""
+    """Seeded truncated He-normal init (``he_normal_``) of every conv and
+    linear, in module order, from one CPU ``torch.Generator`` (the same
+    weights whatever the device); biases zero."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():

@@ -94,7 +94,8 @@ def build_model(arch: str, fold_bn: bool | None = None, num_classes: int = 1000,
         fold_bn = False
     size = input_size or (299 if arch == 'inception_v3' else 224)
     model = _build(arch, fold_bn, num_classes, getattr(torch, dtype), size)
-    init_parameters(model, seed)
+    if dev.type != 'meta':   # a meta model holds no values to draw
+        init_parameters(model, seed)
     eight_bit = ('Conv2d_1a_3x3', 'Conv2d_2a_3x3') if arch == 'inception_v3' else ()
     return model.to(dev).eval(), ModelMeta(arch=arch, fold_bn=fold_bn, input_size=size,
                                            eight_bit_weight_names=eight_bit)

@@ -196,12 +196,17 @@ def int_conv_exact(x_q, w_codes, strides, padding, groups) -> torch.Tensor:
     """The exact int32 convolution of int8 codes.  The CPU convolves int32
     directly; CUDA's convolutions are floating point only, so the codes go
     through float64, exact for these sums (< 2^53), and are rounded back (the
-    rounding also removes what a transform-based algorithm could add)."""
+    rounding also removes what a transform-based algorithm could add).  On
+    CUDA the sums come out in channels_last memory, as the kernel's do
+    (PyTorch's grouped and depthwise float64 convs return NCHW): a forward
+    through the plain versions then runs its later float ops, a pooling
+    mean among them, in the same order as the kernel's forward."""
     if x_q.device.type == 'cpu':
         return F.conv2d(x_q.to(torch.int32), w_codes.to(torch.int32), None, strides, padding,
                         groups=groups)
     return F.conv2d(x_q.double(), w_codes.double(), None, strides, padding,
-                    groups=groups).round().to(torch.int32)
+                    groups=groups).round().to(torch.int32) \
+        .contiguous(memory_format=torch.channels_last)
 
 
 def int8_conv_dequant_plain(x_q, w_codes, alpha, bias=None, *, strides=(1, 1),

@@ -44,6 +44,8 @@ FLAGS = {
     'mid_tread': W4A4 + ['-pcq_w', '-pcq_a', '-mtq', '-c', 'laplace', '-baa', '-baw', '-me'],
     'mid_tread_per_tensor': W4A4 + ['-pcq_w', '-mtq', '-c', 'laplace', '-me'],
     'stochastic': ['--qtype', 'int8', '-qw', 'int8', '-s'],
+    # the 2std clipper per tensor (no -pcq_*), the ordering task's fifth config
+    'two_std': ['--qtype', 'int4', '-qw', 'int8', '-c', '2std'],
 }
 
 
