@@ -68,9 +68,13 @@ two serving paths run at batch 64:
     (1000 Adam steps at batch 128 on its synthetic heavy-tailed task), its
     six golden configurations through ``inference_sim`` on 2048 images at
     batch 256 (launches by mode and route against the tables), one batch
-    through the kernels and their plain versions, fp32 and W8A8 serving
-    again on the CPU; the six assertions of the JAX test and card-vs-CPU
-    top-1 within 0.2 points;
+    through the kernels and their plain versions; the float-order band of
+    the three 4-bit recipes (16 draws of one-ulp nudges of the trained
+    weights through the kernels: top-1 mean, sd, min and max, and in how
+    many draws each ordering assertion holds); all but W8A8 again on the
+    CPU; the six assertions of the JAX test on the unperturbed network,
+    card-vs-CPU top-1 within 0.2 points for fp32 and W8A8 serving and within
+    the card band's mean +- max(4 sd, 4 images) for the 4-bit recipes;
   * the throughput bench (``python3 -m cnn_quantization_tpu_torch.bench``):
     ResNet-50 with bfloat16 activations at batch 128 (W4A4 simulation, bf16
     baseline, W8A8 serving, W4A4 serving plain and packed), the batch sweep,
@@ -2798,7 +2802,7 @@ def ordering_predictions(model, params, policy, serving, n_batches, cal_batches)
     return modes + times_counter(predicted_site_modes(policy, sites), n_batches), Counter()
 
 
-def accuracy_path(device, card, steps=1000, n_test=2048, batch=256):
+def accuracy_path(device, card, steps=1000, n_test=2048, batch=256, draws=16):
     """The recipes' accuracy ordering on a network the port trained: the JAX
     ordering test's ResNet-18 trained on the card (``train_ordering_net``),
     its weights written as the JAX package's ``.npz`` and its test set as
@@ -2808,10 +2812,14 @@ def accuracy_path(device, card, steps=1000, n_test=2048, batch=256):
     launches by mode and the integer launches by route against the site and
     route tables.  Then one batch of the trained network through the kernels
     and their plain versions (the headline's dynamic simulation; W8A8 serving
-    with the CLI's frozen scales), and ``fp32`` and ``w8a8_serving`` once
-    more on the CPU from the same files.  The ordering itself is checked by
-    ``main``.  Returns the report."""
-    from cnn_quantization_tpu_torch.cli import inference_sim
+    with the CLI's frozen scales); the float-order band of the three 4-bit
+    recipes through the kernels (``accuracy_band``, ``draws`` one-ulp
+    nudges of the trained weights; its launches by mode against the tables),
+    and in how many draws each of the six ordering assertions holds with the
+    draw's 4-bit top-1s; and ``fp32``, ``w8a8_serving`` and the three 4-bit
+    recipes once more on the CPU from the same files.  The ordering itself
+    and the CPU runs against the card are checked by ``main``.  Returns the
+    report."""
     from cnn_quantization_tpu_torch.utils.checkpoint import save_params_npz
     from cnn_quantization_tpu_torch.utils.flax_params import flax_from_state_dict
     # deterministic cuDNN algorithms: the same trained network run after run
@@ -2853,11 +2861,10 @@ def accuracy_path(device, card, steps=1000, n_test=2048, batch=256):
             entry, run = run_cli(name, device.type)
             counted = Counter({k: fn.launches for k, fn in wrappers.items()})
             routes = +route_launches()
-            args = inference_sim.build_parser().parse_args(base + flags)
-            policy = (QuantPolicy(qtype=None, arch=ORDERING_ARCH) if args.q_off
-                      else inference_sim.policy_from_args(args))
-            modes, route_pred = ordering_predictions(model, params, policy, args.serving_int8,
-                                                     n_batches, cal_batches)
+            policy = ordering_policy(name)
+            modes, route_pred = ordering_predictions(model, params, policy,
+                                                     '--serving_int8' in flags, n_batches,
+                                                     cal_batches)
             entry.update(launches=dict(+counted), fake_quant_modes=dict(run['modes']),
                          predicted_fake_quant_modes=dict(modes), routes=dict(routes),
                          predicted_routes=dict(route_pred))
@@ -2883,8 +2890,43 @@ def accuracy_path(device, card, steps=1000, n_test=2048, batch=256):
             'accuracy_serving_kernels_vs_plain_end_to_end', eng8, sp, scales, images)
         del eng, eng8, sp
 
-        # the card against the CPU, from the same two files
-        for name in ('fp32', 'w8a8_serving'):
+        # the float-order band of the 4-bit recipes, through the kernels
+        t_band = time.perf_counter()
+        state = {k: v.cpu().numpy() for k, v in params.items()}
+        score = port_band_scorer(model, meta, xte, yte, batch, device)
+        for fn in wrappers.values():
+            fn.launches = 0
+        reset_route_launches()
+        with cli_instrumented() as (modes, logits):
+            def score_keeping_no_logits(state, name):
+                out = score(state, name)
+                logits.clear()
+                return out
+            band = accuracy_band(score_keeping_no_logits, state, draws)
+        counted_band = Counter({k: fn.launches for k, fn in wrappers.items()})
+        predicted = Counter()
+        for name in BAND_CONFIGS:
+            one, _ = ordering_predictions(model, params, ordering_policy(name), False,
+                                          n_batches, cal_batches)
+            predicted += times_counter(one, draws + 1)
+        check(modes == predicted and +counted_band == Counter(fake_quant=sum(predicted.values()))
+              and not +route_launches(),
+              f'accuracy_path band: launches {dict(counted_band)} by mode {dict(modes)}, the '
+              f'tables predict {dict(predicted)}')
+        launches += counted_band
+        top1 = {name: c['top1'] for name, c in report['configs'].items()}
+        held = Counter()
+        for k in range(draws):
+            for rule, ok in ordering_holds(
+                    {**top1, **{n: band[n]['top1']['draws'][k] for n in BAND_CONFIGS}}).items():
+                held[rule] += ok
+        report['band'] = dict(draws=draws, share=BAND_SHARE, configs=band,
+                              launches=dict(+counted_band), fake_quant_modes=dict(modes),
+                              ordering_held_in_draws={r: held[r] for r in ordering_holds(top1)},
+                              wall_s=time.perf_counter() - t_band)
+
+        # the card against the CPU, from the same files
+        for name in ('fp32', 'w8a8_serving') + BAND_CONFIGS:
             report['cpu'][name], _ = run_cli(name, 'cpu')
     report.update(launches=dict(launches), wall_s=time.perf_counter() - t0)
     emit('accuracy_path', card=card, **report)
@@ -2902,6 +2944,95 @@ def ordering_holds(top1):
         'naive_w4a4 > 2std + 2': top1['naive_w4a4'] > top1['2std'] + 2.0,
         'naive_w4a4 < fp32 - 3': top1['naive_w4a4'] < top1['fp32'] - 3.0,
     }
+
+
+# ------------------------------------------------------------ the 4-bit recipes' float-order band
+
+# the 4-bit recipes, whose top-1 moves with the last bit of a float sum; a
+# draw of the band nudges this share of every weight tensor's elements up by
+# one ulp
+BAND_CONFIGS = ('naive_w4a4', 'headline', '2std')
+BAND_SHARE = 0.3
+
+
+def nudge_weights(state, draw, share=BAND_SHARE):
+    """Draw ``draw`` of the float-order band: a copy of the state dict (name ->
+    array, the port's layout) with ``share`` of each weight tensor's elements
+    (ndim >= 2), chosen by ``RandomState(draw)`` in name order, moved up by
+    one ulp (``np.nextafter`` toward +inf).  Biases stay as they are.  Arrays
+    come back as C-contiguous float32 numpy."""
+    rs = np.random.RandomState(draw)
+    out = {}
+    for name in sorted(state):
+        w = np.array(state[name], dtype=np.float32, order='C')
+        if w.ndim >= 2:
+            flat = w.reshape(-1)
+            idx = rs.choice(flat.size, int(share * flat.size), replace=False)
+            flat[idx] = np.nextafter(flat[idx], np.float32(np.inf))
+        out[name] = w
+    return out
+
+
+def band_summary(values):
+    """mean, sample sd, min and max of a list of top-1s, and the list."""
+    v = np.asarray(values, np.float64)
+    return dict(mean=float(v.mean()), sd=float(v.std(ddof=1)), min=float(v.min()),
+                max=float(v.max()), draws=[float(x) for x in v])
+
+
+def accuracy_band(score, state, draws, configs=BAND_CONFIGS):
+    """The float-order band of each config: ``score(state, name) -> (top1,
+    top5)`` on the unperturbed state and on ``draws`` draws of
+    ``nudge_weights``.  Returns {name: {'unperturbed': top1,
+    'unperturbed_top5', 'top1': band_summary, 'top5': band_summary}}."""
+    out = {}
+    for name in configs:
+        t1, t5 = score(state, name)
+        out[name] = dict(unperturbed=t1, unperturbed_top5=t5, top1=[], top5=[])
+    for k in range(draws):
+        nudged = nudge_weights(state, k)
+        for name in configs:
+            t1, t5 = score(nudged, name)
+            out[name]['top1'].append(t1)
+            out[name]['top5'].append(t5)
+    for entry in out.values():
+        entry['top1'], entry['top5'] = band_summary(entry['top1']), band_summary(entry['top5'])
+    return out
+
+
+def ordering_policy(name, arch=ORDERING_ARCH):
+    """The port's policy of one golden configuration, as ``inference_sim``
+    builds it from its flags."""
+    from cnn_quantization_tpu_torch.cli import inference_sim
+    args = inference_sim.build_parser().parse_args(['-a', arch] + ORDERING_CONFIGS[name])
+    return (QuantPolicy(qtype=None, arch=arch) if args.q_off
+            else inference_sim.policy_from_args(args))
+
+
+def port_band_scorer(model, meta, images, labels, batch, device):
+    """``score`` of ``accuracy_band`` on the port: the weight pass, then
+    ``evaluate`` (dynamic statistics, as the CLI runs these configs) over
+    ``images``/``labels`` at ``batch`` on ``device``."""
+    batches = [(images[i:i + batch], labels[i:i + batch]) for i in range(0, len(images), batch)]
+    engines = {}
+
+    def score(state, name):
+        if name not in engines:
+            engines[name] = QuantEngine(model, ordering_policy(name), meta)
+        eng = engines[name]
+        params = {k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+                  for k, v in state.items()}
+        res = evaluate(eng, eng.quantize_params(params), batches)
+        return res['top1'], res['top5']
+
+    return score
+
+
+def band_holds(band, top1, n_images, sds=4.0, floor_images=4):
+    """Whether ``top1`` lies within the band's mean +- max(sds * sd,
+    floor_images images), and that half-width."""
+    half = max(sds * band['sd'], 100.0 * floor_images / n_images)
+    return abs(top1 - band['mean']) <= half, half
 
 
 def main():
@@ -2974,8 +3105,14 @@ def main():
     held = ordering_holds(top1)
     check(all(held.values()), f'accuracy ordering on the card-trained ResNet-18: {held}, '
           f'top-1 {top1}')
-    check(all(abs(c['top1'] - top1[name]) <= CARD_VS_CPU_TOP1 for name, c in acc['cpu'].items()),
+    check(all(abs(acc['cpu'][name]['top1'] - top1[name]) <= CARD_VS_CPU_TOP1
+              for name in ('fp32', 'w8a8_serving')),
           f"accuracy_path top-1 card {top1} against the CPU {acc['cpu']}")
+    # a 4-bit recipe's CPU run is one more draw of its float order
+    check(all(band_holds(acc['band']['configs'][name]['top1'], acc['cpu'][name]['top1'],
+                         acc['images'])[0] for name in BAND_CONFIGS),
+          f"accuracy_path 4-bit top-1 on the CPU {acc['cpu']} outside the card's band "
+          f"{acc['band']['configs']}")
 
     # ---- main path 2: true-int8 serving through the int8 GEMM and conv kernels
     eng, sp, scales, pq, images, srep = drive_serving_path(device)

@@ -112,18 +112,29 @@ class Pair:
         self.x = (np.random.RandomState(3).rand(batch, size, size, 3).astype(np.float32)
                   * 2 - 1)
 
-    def logits(self, policy_kw):
+    def logits(self, policy_kw, eager=False):
+        """(port logits, JAX logits) of the quantized forward.  The JAX side
+        runs jitted, as its CLI does, or with ``eager`` under
+        ``jax.disable_jit()``: its weight pass and forward op by op, as the
+        port runs them (XLA's jit multiplies by reciprocals of constants,
+        which flips codes at rounding ties)."""
         j_eng = JEngine(self.j_model, JPolicy(arch=self.arch, **policy_kw), self.j_meta)
-        j_pq = j_eng.quantize_params(self.j_params)
-        want, _ = j_eng.jit_forward()(j_pq, None, jnp.asarray(self.x))
+        if eager:
+            with jax.disable_jit():
+                want, _ = j_eng.make_forward()(j_eng.quantize_params(self.j_params), None,
+                                               jnp.asarray(self.x))
+        else:
+            j_pq = j_eng.quantize_params(self.j_params)
+            want, _ = j_eng.jit_forward()(j_pq, None, jnp.asarray(self.x))
         eng = QuantEngine(self.model, QuantPolicy(arch=self.arch, **policy_kw), self.meta)
         got, _ = eng.make_forward()(eng.quantize_params(self.params), None, self.x)
         return got.numpy(), np.asarray(want)
 
-    def teacher_forced(self, policy_kw):
+    def teacher_forced(self, policy_kw, eager=False):
         """Relative error of each site's quantized output, both quantizers fed
         the same pre-quantization tensor (the float model's, per site), so
-        no error compounds from site to site."""
+        no error compounds from site to site.  The JAX taps run jitted, or
+        with ``eager`` under ``jax.disable_jit()``."""
         cap = CaptureContext()
         with torch.no_grad():
             torch.func.functional_call(self.model, self.params,
@@ -132,8 +143,15 @@ class Pair:
                 for k, v in cap.acts.items()}
         sites = j_discover_sites(self.j_model, self.x.shape)
         j_ctx = JQuantizeContext(JPolicy(arch=self.arch, **policy_kw))
-        want = jax.device_get(jax.jit(
-            lambda a: {s.id: j_ctx.tap(a[s.id], s) for s, _ in sites})(acts))
+
+        def taps(a):
+            return {s.id: j_ctx.tap(a[s.id], s) for s, _ in sites}
+
+        if eager:
+            with jax.disable_jit():
+                want = jax.device_get(taps(acts))
+        else:
+            want = jax.device_get(jax.jit(taps)(acts))
         ctx = QuantizeContext(QuantPolicy(arch=self.arch, **policy_kw))
         rels = {}
         for site, _shape in sites:

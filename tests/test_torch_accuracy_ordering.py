@@ -3,12 +3,15 @@
 dataset bit for bit, the truncated He-normal init against Flax's, three
 training steps against the JAX test's ``_train``, and ``chip_smoke.py``'s
 slice-11 phase ``accuracy_path`` rehearsed with stand-ins for the kernels'
-launches (``tests/test_torch_chip_zoo_path.py``).  On the card the phase
-trains 1000 steps at batch 128 and runs the six configurations on 2048
-images at batch 256 through the kernels themselves; the whole ordering on
-the CPU is ``tests/test_torch_accuracy_ordering_slow.py`` (gated)."""
+launches (``tests/test_torch_chip_zoo_path.py``), its float-order band at 2
+draws.  On the card the phase trains 1000 steps at batch 128, runs the six
+configurations on 2048 images at batch 256 and the band at 16 draws through
+the kernels themselves; the whole ordering on the CPU is
+``tests/test_torch_accuracy_ordering_slow.py`` and the band against the JAX
+package ``tests/test_torch_accuracy_band_slow.py`` (both gated)."""
 
 import json
+from collections import Counter
 
 import jax
 import numpy as np
@@ -86,7 +89,8 @@ def test_three_steps_match_jax_train():
 
 
 def test_accuracy_path_phase_on_cpu(stand_in_kernels, capsys):  # noqa: F811
-    rep = chip_smoke.accuracy_path(torch.device('cpu'), 'cpu', steps=2, n_test=64, batch=32)
+    rep = chip_smoke.accuracy_path(torch.device('cpu'), 'cpu', steps=2, n_test=64, batch=32,
+                                   draws=2)
     configs = rep['configs']
     assert list(configs) == list(chip_smoke.ORDERING_CONFIGS)
     # 21 weights (20 convs, the classifier), 23 activation sites, 2 batches
@@ -107,12 +111,26 @@ def test_accuracy_path_phase_on_cpu(stand_in_kernels, capsys):  # noqa: F811
         assert entry['fake_quant_modes'] == entry['predicted_fake_quant_modes'] == modes, name
         assert entry['routes'] == entry['predicted_routes'] == routes, name
         assert np.isfinite(entry['top1']) and entry['images_per_sec'] > 0
-    assert rep['launches'] == {'fake_quant': 21 * 5 + 2 * 23 * 4,
+    # the band: 3 runs (unperturbed, 2 draws) of each 4-bit recipe
+    band = rep['band']
+    band_modes = Counter()
+    for name in chip_smoke.BAND_CONFIGS:
+        band_modes.update({mode: 3 * n for mode, n in want[name][0].items()})
+    assert band['fake_quant_modes'] == dict(band_modes)
+    assert band['launches'] == {'fake_quant': 3 * 3 * (21 + 2 * 23)}
+    assert list(band['configs']) == list(chip_smoke.BAND_CONFIGS)
+    for entry in band['configs'].values():
+        assert len(entry['top1']['draws']) == 2 and np.isfinite(entry['top1']['mean'])
+        assert entry['top1']['min'] <= entry['top1']['mean'] <= entry['top1']['max']
+    assert list(band['ordering_held_in_draws']) == list(
+        chip_smoke.ordering_holds({n: 0.0 for n in chip_smoke.ORDERING_CONFIGS}))
+    assert all(0 <= n <= 2 for n in band['ordering_held_in_draws'].values())
+    assert rep['launches'] == {'fake_quant': 21 * 5 + 2 * 23 * 4 + 3 * 3 * (21 + 2 * 23),
                                'int8_gemm': 4, 'int8_conv': 4 * 19}
     assert rep['headline_kernel_vs_plain']['dynamic']['rel_err'] == 0.0
     assert 'frozen' not in rep['headline_kernel_vs_plain']
     assert rep['serving_kernel_vs_plain']['rel_err'] == 0.0
-    assert set(rep['cpu']) == {'fp32', 'w8a8_serving'}
+    assert set(rep['cpu']) == {'fp32', 'w8a8_serving', *chip_smoke.BAND_CONFIGS}
     for name, entry in rep['cpu'].items():
         assert entry['top1'] == configs[name]['top1']
     assert rep['train']['steps'] == 2 and np.isfinite(rep['train']['last10_loss'])

@@ -9,6 +9,12 @@ test through both packages' CLIs, config by config, at the CLI-pair bar
 quantized-path inputs through the port's quantizers.  The card runs the same
 ordering in ``chip_smoke.py``'s ``accuracy_path`` phase.
 
+The 4-bit configs' CLI pairs need not hold their bar: each CLI run is one
+draw of the recipe's float-order chaos, and the bar asks one draw to equal
+another.  What holds the two packages together on these configs is their
+band (``tests/test_torch_accuracy_band_slow.py``): the port's band mean
+within 3 combined standard errors of the JAX package's, jitted and eager.
+
 Runtime: 11-16 min on an 8-core CPU, most of it the two trainings (the
 JAX fixture is the JAX test's own).  Gated behind ``CNNQ_RUN_SLOW=1`` as the
 JAX test is:
@@ -82,9 +88,16 @@ def test_jax_trained_weights_through_both_clis(name, trained_assets, tmp_path,  
 @pytest.mark.parametrize('name', list(chip_smoke.ORDERING_CONFIGS))
 def test_jax_trained_weights_port_cli_against_eager_jax_cli(name, trained_assets,  # noqa: F811
                                                             tmp_path, monkeypatch):
-    """As above with the JAX CLI under ``jax.disable_jit()``: XLA's jitted
-    weight pass divides by qmax through its reciprocal and flips codes at
-    rounding ties (``tests/_torch_cli_pair.py``), the eager ops do not."""
+    """As above with the JAX CLI under ``jax.disable_jit()``, whose weight
+    pass the port's equals bit for bit for the three 4-bit configs
+    (``tests/test_torch_accuracy_band_slow.py``; XLA's jitted pass
+    divides by qmax through its reciprocal and multiplies by 1/n in the
+    bias correction's means, which moves codes at rounding ties).  The
+    4-bit configs still differ here by a draw of their float order: their
+    activation statistics sum in another order than XLA's
+    (``tests/test_torch_accuracy_band_slow.py``, steps c-d; summed in XLA's
+    order, a test-only stand-in, the port's headline scores 74.0234 against
+    this CLI's 73.9746), and both packages' bands agree within their bar."""
     argv = _base(*trained_assets) + chip_smoke.ORDERING_CONFIGS[name]
     with jax.disable_jit():
         eager = run(j_cli.main, argv, tmp_path / 'jax', monkeypatch)
@@ -101,8 +114,13 @@ def test_jax_trained_weights_quantized_path_sites(name, trained_assets,  # noqa:
     float model's) handed to the port's quantizer: the outputs agree but for
     codes flipped at rounding ties, at most 1 in 100,000 elements a site (an
     element further from JAX's than 1e-4 of the site's largest value counts
-    as flipped).  The end-to-end gaps of the two tests above are such flips
-    compounding through the trunk."""
+    as flipped).  The flips come from the per-channel statistics (the
+    Laplace ``b`` sums over N*H*W in torch's order, XLA's in windows of 32),
+    which put a site's clip values a few ulps apart; free running, the first
+    site flips 2 codes and the flips compound through the trunk
+    (``tests/test_torch_accuracy_band_slow.py``).  The end-to-end gaps of
+    the two tests above are one draw of that spread: the port's band agrees
+    with the JAX package's, jitted and eager, within its bar."""
     import dataclasses
     from cnn_quantization_tpu.engine import QuantEngine as JEngine
     from cnn_quantization_tpu.engine import QuantPolicy as JPolicy

@@ -7,7 +7,9 @@ inputs are numpy, seeded (tests/_torch_parity.py).  Tolerances:
   * teacher-forced sites (each site's quantizer on the JAX model's own
     pre-quantization tensor): every site under 1e-3 relative and the median
     under 1e-6, as tests/test_full_model_parity.py:388-454 requires against
-    the reference;
+    the reference; against the JAX quantizers run op by op
+    (``jax.disable_jit()``), naive W4A4 bit-equal and the headline within
+    1e-6 at every site;
   * end-to-end logits: resnet18 at 64x64, batch 2: argmax equal and relative
     error under 2e-3; resnet50 at 32x32: relative error under 5e-2, the chaos
     bound measured at tests/test_full_model_parity.py:467-495 (sub-grid-step
@@ -83,10 +85,28 @@ def test_end_to_end_logits_resnet18(r18, name):
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
+@pytest.mark.parametrize('name', sorted(POLICIES))
+def test_teacher_forced_sites_resnet18_eager_jax(r18, name):
+    """As above against the JAX quantizers run op by op: naive W4A4 equal
+    bit for bit at every site; the headline's per-channel clip values come
+    from statistics summed in another order than XLA's, a few ulps apart."""
+    rels = r18.teacher_forced(POLICIES[name], eager=True)
+    assert len(rels) == 23
+    bar = 0.0 if name == 'naive_w4a4' else 1e-6
+    worst = max(rels, key=rels.get)
+    assert rels[worst] <= bar, f'site {worst}: teacher-forced rel {rels[worst]:.2e}'
+
+
 def test_float_passthrough_resnet18(r18):
     got, want = r18.logits(dict(qtype=None))
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
     assert rel < 1e-5, f'fp32 logit rel err {rel:.2e}'
+
+
+def test_float_passthrough_resnet18_eager_jax(r18):
+    got, want = r18.logits(dict(qtype=None), eager=True)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel < 1e-5, f'fp32 logit rel err against eager JAX {rel:.2e}'
 
 
 def test_bottleneck_headline_resnet50(r50):
