@@ -18,6 +18,8 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
+from ..utils import spans
+
 KINDS = ('min', 'mean', 'max')
 
 
@@ -81,13 +83,16 @@ def collect_statistics(collect_fn, params, batches: Iterable, *,
     ``cal_set_size`` stops after that many images (inference_sim.py:294-296)."""
     agg = StatsAggregator()
     seen = 0
-    for images, _ in batches:
-        if cal_set_size is not None and seen >= cal_set_size:
-            break
-        _, batch_stats = collect_fn(params, images)
-        agg.update(_to_host(batch_stats))
-        seen += images.shape[0]
-    return agg.summary()
+    with spans.span('calib.collect') as top:
+        for images, _ in batches:
+            if cal_set_size is not None and seen >= cal_set_size:
+                break
+            with spans.span('calib.batch'):
+                _, batch_stats = collect_fn(params, images)
+                agg.update(_to_host(batch_stats))
+            seen += images.shape[0]
+        top.counts = {'images': seen}
+        return agg.summary()
 
 
 def stats_to_device(stats: Mapping[str, Mapping[str, Any]] | None, device):

@@ -20,9 +20,11 @@ import torch.nn.functional as F
 
 from ..ops import bias_corr
 from ..ops.aciq import ALPHA_LAPLACE
+from ..ops.kernels import launch_counts, launches_since
 from ..ops.kernels.int_matmul import quantize_sym_int8
 from ..ops.quantizer import quantize_weight
 from ..ops.stats import global_over
+from ..utils import spans
 from ..utils.device import as_f32, nhwc_to_nchw
 from .context import CollectContext, QuantizeContext, ServingInt8Context, TapContext
 from .policy import QuantPolicy, parse_qtype_bits
@@ -62,41 +64,45 @@ class QuantEngine:
     def quantize_params(self, params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """A new state dict with every conv/linear weight fake-quantized per
         the policy (one fake-quant kernel launch per weight)."""
-        configs = self.policy.tag_configs()
-        out = dict(params)
-        if not configs:
+        with spans.span('engine.quantize_params', counts={'weights': 0}) as top:
+            configs = self.policy.tag_configs()
+            out = dict(params)
+            if not configs:
+                return out
+            for name in _weight_names(params):
+                kernel = params[name]
+                path = name[:-len('.weight')]
+                if kernel.ndim == 4:
+                    cfg = configs['weight']
+                    if cfg is not None:
+                        in_ch = kernel.shape[1]  # OIHW
+                        name8 = any(n in path for n in self.meta.eight_bit_weight_names)
+                        if in_ch == 3 or name8:
+                            # first layer / inception stem stay 8-bit
+                            cfg = dataclasses.replace(cfg, num_bits=8)
+                else:
+                    out_ch = kernel.shape[0]  # [out, in]
+                    cfg = configs['weight_classifier' if out_ch == 1000 else 'weight']
+                if cfg is None:
+                    continue
+                w_in = kernel
+                if self.policy.rho_weight is not None:
+                    # fp32 ratio clip ahead of weight quantization (the reference's
+                    # weights_clipper, live here; clipping_manager.py:45-62); the
+                    # corrections below still target the ORIGINAL fp32 moments
+                    from ..ops.clippers import ratio_clip
+                    w_in = ratio_clip(kernel, self.policy.rho_weight)
+                with spans.span('weight.grid'):
+                    w_q, _ = quantize_weight(w_in, cfg, out_axis=0)
+                if self.policy.var_corr_weight or self.policy.bias_corr_weight:
+                    with spans.span('weight.bias_corr'):
+                        w_q = bias_corr.weight_correction(
+                            kernel, w_q, out_axis=0,
+                            bias_corr=self.policy.bias_corr_weight,
+                            var_corr=self.policy.var_corr_weight)
+                out[name] = w_q.to(kernel.dtype)
+                top.counts['weights'] += 1
             return out
-        for name in _weight_names(params):
-            kernel = params[name]
-            path = name[:-len('.weight')]
-            if kernel.ndim == 4:
-                cfg = configs['weight']
-                if cfg is not None:
-                    in_ch = kernel.shape[1]  # OIHW
-                    name8 = any(n in path for n in self.meta.eight_bit_weight_names)
-                    if in_ch == 3 or name8:
-                        # first layer / inception stem stay 8-bit
-                        cfg = dataclasses.replace(cfg, num_bits=8)
-            else:
-                out_ch = kernel.shape[0]  # [out, in]
-                cfg = configs['weight_classifier' if out_ch == 1000 else 'weight']
-            if cfg is None:
-                continue
-            w_in = kernel
-            if self.policy.rho_weight is not None:
-                # fp32 ratio clip ahead of weight quantization (the reference's
-                # weights_clipper, live here; clipping_manager.py:45-62); the
-                # corrections below still target the ORIGINAL fp32 moments
-                from ..ops.clippers import ratio_clip
-                w_in = ratio_clip(kernel, self.policy.rho_weight)
-            w_q, _ = quantize_weight(w_in, cfg, out_axis=0)
-            if self.policy.var_corr_weight or self.policy.bias_corr_weight:
-                w_q = bias_corr.weight_correction(
-                    kernel, w_q, out_axis=0,
-                    bias_corr=self.policy.bias_corr_weight,
-                    var_corr=self.policy.var_corr_weight)
-            out[name] = w_q.to(kernel.dtype)
-        return out
 
     # ------------------------------------------------------------------
     # Step functions
@@ -160,7 +166,7 @@ class QuantEngine:
                 ctx = TapContext()
             return _run(self.model, params, images, ctx, self.device, mesh)
 
-        return fwd
+        return _forward_span(fwd)
 
     @torch.no_grad()
     def prepare_serving_params(self, params_q: Mapping[str, torch.Tensor], *,
@@ -178,28 +184,30 @@ class QuantEngine:
         ``s2d_stem=True`` (BN-folded ResNet 7x7/2 stems, even input sizes)
         instead space-to-depth transforms it to an equivalent [O, 12, 4, 4]
         stride-1 kernel quantized to int8 (``s2d_stem_kernel``)."""
-        _, wb = self._serving_bits()
-        out = dict(params_q)
-        for name in _weight_names(params_q):
-            kernel = params_q[name]
-            path = name[:-len('.weight')]
-            if kernel.ndim == 4:
-                if kernel.shape[1] == 3:
-                    if not (s2d_stem and self.meta.fold_bn
-                            and tuple(kernel.shape[1:]) == (3, 7, 7)):
-                        continue  # the float first conv
-                    kernel, bits = s2d_stem_kernel(kernel.float()), 8
+        with spans.span('engine.prepare_serving_params', counts={'weights': 0}) as top:
+            _, wb = self._serving_bits()
+            out = dict(params_q)
+            for name in _weight_names(params_q):
+                kernel = params_q[name]
+                path = name[:-len('.weight')]
+                if kernel.ndim == 4:
+                    if kernel.shape[1] == 3:
+                        if not (s2d_stem and self.meta.fold_bn
+                                and tuple(kernel.shape[1:]) == (3, 7, 7)):
+                            continue  # the float first conv
+                        kernel, bits = s2d_stem_kernel(kernel.float()), 8
+                    else:
+                        name8 = any(n in path for n in self.meta.eight_bit_weight_names)
+                        bits = 8 if name8 else wb
                 else:
-                    name8 = any(n in path for n in self.meta.eight_bit_weight_names)
-                    bits = 8 if name8 else wb
-            else:
-                bits = 8  # linear/classifier weights stay 8-bit (policy)
-            codes, scale = quantize_sym_int8(kernel.float(), axis=0, bits=bits)
-            if codes.ndim == 4:
-                codes = codes.contiguous(memory_format=torch.channels_last)
-            out[name] = codes
-            out[f'{path}.w_scale'] = scale
-        return out
+                    bits = 8  # linear/classifier weights stay 8-bit (policy)
+                codes, scale = quantize_sym_int8(kernel.float(), axis=0, bits=bits)
+                if codes.ndim == 4:
+                    codes = codes.contiguous(memory_format=torch.channels_last)
+                out[name] = codes
+                out[f'{path}.w_scale'] = scale
+                top.counts['weights'] += 1
+            return out
 
     def freeze_serving_scales(self, params_q, batches, *, max_batches: int = 4,
                               mode: str = 'max', percentile: float = 99.99,
@@ -224,49 +232,53 @@ class QuantEngine:
         ``:out:packed`` keys, which only this call with ``packed=True`` emits."""
         if mode not in ('max', 'percentile', 'aciq'):
             raise ValueError(f'unknown serving calibration mode {mode!r}')
-        act_bits, weight_bits = self._serving_bits()
-        agg: dict[str, dict[str, list]] = {}
-        with torch.no_grad():
-            for i, (images, _) in enumerate(batches):
-                if i >= max_batches:
-                    break
-                ctx = ServingInt8Context(act_bits=act_bits, weight_bits=weight_bits,
-                                         calibrate=True, percentile=percentile)
-                x = nhwc_to_nchw(images, self.device)
-                torch.func.functional_call(self.model, params_q, (x, ctx))
-                for key, v in ctx.finalize().items():
-                    if '/' not in key:
-                        continue
-                    site_id, stat = key.rsplit('/', 1)
-                    # a scalar for per-tensor sites, a channel vector for
-                    # grouped conv inputs
-                    agg.setdefault(site_id, {}).setdefault(stat, []).append(
-                        v.double().cpu().numpy())
+        with spans.span('engine.freeze_serving_scales', counts={'images': 0}) as top:
+            act_bits, weight_bits = self._serving_bits()
+            agg: dict[str, dict[str, list]] = {}
+            with torch.no_grad():
+                for i, (images, _) in enumerate(batches):
+                    if i >= max_batches:
+                        break
+                    with spans.span('calib.batch'):
+                        ctx = ServingInt8Context(act_bits=act_bits, weight_bits=weight_bits,
+                                                 calibrate=True, percentile=percentile)
+                        x = nhwc_to_nchw(images, self.device)
+                        torch.func.functional_call(self.model, params_q, (x, ctx))
+                        for key, v in ctx.finalize().items():
+                            if '/' not in key:
+                                continue
+                            site_id, stat = key.rsplit('/', 1)
+                            # a scalar for per-tensor sites, a channel vector for
+                            # grouped conv inputs
+                            agg.setdefault(site_id, {}).setdefault(stat, []).append(
+                                v.double().cpu().numpy())
+                    top.counts['images'] += images.shape[0]
 
-        frozen: dict[str, Any] = {}
-        for site_id, stats in agg.items():
-            # linear/classifier inputs always quantize on the full int8 grid
-            # (QLinear), ':out' sites (downsample identity codes) likewise,
-            # and conv0 (the in_ch == 3 stem) is the reference's automatic
-            # 8-bit exception for int4 runs (i_q_m.py:336-338)
-            bits = (8 if site_id.startswith(('linear', 'conv0_')) or site_id.endswith(':out')
-                    else act_bits)
-            qmax = 2.0 ** (bits - 1) - 1.0
-            # every reduction is elementwise, so vector stats freeze to vectors
-            absmax = np.maximum.reduce(stats['absmax'])
-            if mode == 'max':
-                clip = absmax
-            elif mode == 'percentile':
-                clip = np.maximum.reduce(stats['pq'])
-            else:
-                clip = np.minimum(ALPHA_LAPLACE[bits] * np.mean(stats['b'], axis=0), absmax)
-            targets = {site_id: qmax}
-            if packed and site_id.endswith(':out'):
-                targets[site_id + ':packed'] = 2.0 ** (act_bits - 1) - 1.0
-            for key, q in targets.items():
-                val = np.maximum(clip / q, 1e-8)
-                frozen[key] = float(val) if np.ndim(val) == 0 else val.astype(np.float32)
-        return frozen
+            frozen: dict[str, Any] = {}
+            for site_id, stats in agg.items():
+                # linear/classifier inputs always quantize on the full int8 grid
+                # (QLinear), ':out' sites (downsample identity codes) likewise,
+                # and conv0 (the in_ch == 3 stem) is the reference's automatic
+                # 8-bit exception for int4 runs (i_q_m.py:336-338)
+                bits = (8 if site_id.startswith(('linear', 'conv0_')) or site_id.endswith(':out')
+                        else act_bits)
+                qmax = 2.0 ** (bits - 1) - 1.0
+                # every reduction is elementwise, so vector stats freeze to vectors
+                absmax = np.maximum.reduce(stats['absmax'])
+                if mode == 'max':
+                    clip = absmax
+                elif mode == 'percentile':
+                    clip = np.maximum.reduce(stats['pq'])
+                else:
+                    clip = np.minimum(ALPHA_LAPLACE[bits] * np.mean(stats['b'], axis=0), absmax)
+                targets = {site_id: qmax}
+                if packed and site_id.endswith(':out'):
+                    targets[site_id + ':packed'] = 2.0 ** (act_bits - 1) - 1.0
+                for key, q in targets.items():
+                    val = np.maximum(clip / q, 1e-8)
+                    frozen[key] = float(val) if np.ndim(val) == 0 else val.astype(np.float32)
+            top.counts['sites'] = len(frozen)
+            return frozen
 
     def freeze_qparams(self, stats, input_shape=None):
         """Per-site (delta, offset, qmax) from a stats artifact, as tensors on
@@ -277,9 +289,12 @@ class QuantEngine:
             s = self.meta.input_size
             input_shape = (1, s, s, 3)
         n, h, w, c = input_shape
-        sites = discover_sites(self.model, (n, c, h, w))
-        return freeze_qparams(self.policy, stats, sites, self.ignore_ids,
-                              device=self.device)
+        with spans.span('engine.freeze_qparams') as top:
+            sites = discover_sites(self.model, (n, c, h, w))
+            out = freeze_qparams(self.policy, stats, sites, self.ignore_ids,
+                                 device=self.device)
+            top.counts = {'sites': len(out)}
+        return out
 
     def make_collect(self, per_channel: bool | None = None,
                      batch_avg: bool = False,
@@ -297,7 +312,20 @@ class QuantEngine:
                                  err_bits=err_bits)
             return _run(self.model, params, images, ctx, self.device, mesh)
 
-        return fwd
+        return _forward_span(fwd)
+
+
+def _forward_span(fwd):
+    """``fwd`` as one ``engine.forward`` span, which carries the kernels'
+    launches by route (``ops.kernels.launches_since``)."""
+    def call(*args):
+        with spans.span('engine.forward') as s:
+            before = launch_counts()
+            out = fwd(*args)
+            s.counts = launches_since(before)
+        return out
+
+    return call
 
 
 def _run(model, params, images, ctx, device, mesh=None):

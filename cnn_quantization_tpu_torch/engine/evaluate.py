@@ -10,6 +10,7 @@ the CPU, with the host clock.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -18,8 +19,19 @@ from typing import Any, Iterable, Mapping
 import torch
 
 from ..calib.calibrator import stats_to_device
+from ..utils import spans
 from ..utils.meters import accuracy_counts, cross_entropy_sum
 from .engine import QuantEngine
+
+_END = object()
+
+
+def _batch_sums(logits, labels):
+    """(top-1 count, top-5 count, summed cross entropy) of one batch, on
+    the device."""
+    labels = torch.as_tensor(labels).to(logits.device).long()
+    counts = accuracy_counts(logits, labels, ks=(1, 5))
+    return counts[1], counts[5], cross_entropy_sum(logits, labels)
 
 
 def make_eval_step(engine: QuantEngine, quantized: bool | str = True, qparams=None,
@@ -29,10 +41,8 @@ def make_eval_step(engine: QuantEngine, quantized: bool | str = True, qparams=No
 
     def step(params, stats, images, labels):
         logits, aux = fwd(params, stats, images)
-        labels = torch.as_tensor(labels).to(logits.device).long()
-        counts = accuracy_counts(logits, labels, ks=(1, 5))
-        loss = cross_entropy_sum(logits, labels)
-        return {'top1': counts[1], 'top5': counts[5], 'loss': loss, 'aux': aux}
+        top1, top5, loss = _batch_sums(logits, labels)
+        return {'top1': top1, 'top5': top5, 'loss': loss, 'aux': aux}
 
     return step
 
@@ -86,11 +96,18 @@ def evaluate(engine: QuantEngine, params, batches: Iterable, *,
     restarted with the same path and a deterministic (unshuffled or
     same-seed) loader skips the batches counted in it, without moving them to
     the device, and continues the meters.  Only such a run reads the device's
-    sums inside the loop, once a checkpoint."""
+    sums inside the loop, once a checkpoint.
+
+    Spans (``utils/spans``): ``evaluate.stats``, the statistics' copy to the
+    device, once a call; ``evaluate.fetch``, the wait on ``batches`` for each
+    batch; ``evaluate.batch``, the loop body, which holds the forward's
+    ``engine.forward`` and ``evaluate.meters`` (labels to the device, the
+    counts, the loss, the entropy sums)."""
     device = engine.device
-    stats = stats_to_device(stats, device)
-    step = make_eval_step(engine, quantized, qparams=qparams, act_scales=act_scales,
-                          packed=packed)
+    with spans.span('evaluate.stats'):
+        stats = stats_to_device(stats, device)
+    fwd = engine.make_forward(quantized, qparams=qparams, act_scales=act_scales,
+                              packed=packed)
     timer = _StepTimer(device)
     zero = torch.zeros((), dtype=torch.float64, device=device)
     top1, top5, loss, ent_sum = (zero.clone() for _ in range(4))
@@ -108,32 +125,40 @@ def evaluate(engine: QuantEngine, params, batches: Iterable, *,
         if verbose:
             print(f'=> resuming eval at batch {skip} ({seen} images)')
     seen_at_start = seen
-    for i, (images, labels) in enumerate(batches):
+    it = iter(batches)
+    for i in itertools.count():
+        with spans.span('evaluate.fetch'):
+            item = next(it, _END)
+        if item is _END:
+            break
+        images, labels = item
         if i < skip:
             continue
         if subset is not None and seen >= subset:
             break
-        timer.start()
-        out = step(params, stats, images, labels)
-        timer.stop()
         n = images.shape[0]
-        seen += n
-        top1 += out['top1']
-        top5 += out['top5']
-        loss += out['loss']
-        aux = out['aux']
-        for key in aux:
-            if key.endswith('/entropy'):
-                w = float(aux[key[:-len('/entropy')] + '/numel'])
-                ent_sum += aux[key] * w
-                ent_weight += w
-        if verbose and i % print_freq == 0:
-            print(f'Test: [{i}]\tLoss {float(loss) / seen:.4f}\t'
-                  f'Prec@1 {100.0 * float(top1) / seen:.3f}\t'
-                  f'Prec@5 {100.0 * float(top5) / seen:.3f}')
-        if resume_path and (i + 1) % checkpoint_every == 0:
-            _write_eval_checkpoint(resume_path, i + 1, seen, top1, top5, loss, ent_sum,
-                                   ent_weight)
+        with spans.span('evaluate.batch', batch=i, counts={'images': n}):
+            timer.start()
+            logits, aux = fwd(params, stats, images)
+            with spans.span('evaluate.meters'):
+                b1, b5, bl = _batch_sums(logits, labels)
+                timer.stop()
+                seen += n
+                top1 += b1
+                top5 += b5
+                loss += bl
+                for key in aux:
+                    if key.endswith('/entropy'):
+                        w = float(aux[key[:-len('/entropy')] + '/numel'])
+                        ent_sum += aux[key] * w
+                        ent_weight += w
+            if verbose and i % print_freq == 0:
+                print(f'Test: [{i}]\tLoss {float(loss) / seen:.4f}\t'
+                      f'Prec@1 {100.0 * float(top1) / seen:.3f}\t'
+                      f'Prec@5 {100.0 * float(top5) / seen:.3f}')
+            if resume_path and (i + 1) % checkpoint_every == 0:
+                _write_eval_checkpoint(resume_path, i + 1, seen, top1, top5, loss, ent_sum,
+                                       ent_weight)
     seconds = timer.seconds()
     seen_f = max(seen, 1)
     result = {'top1': 100.0 * float(top1) / seen_f, 'top5': 100.0 * float(top5) / seen_f,

@@ -31,6 +31,7 @@ from ..engine.context import Site, TapContext
 from ..ops.kernels import int4_matmul, int_conv, int_matmul
 from ..parallel.mesh import gather_channels
 from ..utils.device import as_f32
+from ..utils.spans import traced
 
 
 class QTensor(NamedTuple):
@@ -172,6 +173,7 @@ class QConv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    @traced('layer.QConv')
     def forward(self, x, ctx: TapContext, residual=None, out_spec=None,
                 fuse_relu: bool = False):
         """``residual``/``out_spec``/``fuse_relu`` are the packed-serving block
@@ -372,6 +374,7 @@ class QLinear(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    @traced('layer.QLinear')
     def forward(self, x, ctx: TapContext):
         if not getattr(ctx, 'int8_serving', False):
             if self.dtype == torch.float32:   # two paths as in ``QConv.forward``, and why
@@ -417,6 +420,7 @@ class QBatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(features))
         self.register_buffer('running_var', torch.ones(features))
 
+    @traced('layer.QBatchNorm')
     def forward(self, x, ctx: TapContext):
         shape = (1, -1, 1, 1)
         inv = self.weight * torch.rsqrt(self.running_var + self.eps)
@@ -434,6 +438,7 @@ class QMaxPool(nn.Module):
         self.window, self.strides, self.padding = _pair(window), _pair(strides), _pair(padding)
         self.ceil_mode, self.site = ceil_mode, site
 
+    @traced('layer.QMaxPool')
     def forward(self, x, ctx: TapContext):
         if isinstance(x, QTensor):
             # max commutes with the (monotone, symmetric) dequant, so the pool
@@ -459,6 +464,7 @@ class QAvgPool(nn.Module):
         self.window, self.strides, self.padding = window, strides, _pair(padding)
         self.site = site
 
+    @traced('layer.QAvgPool')
     def forward(self, x, ctx: TapContext):
         w = _pair(self.window if self.window is not None else x.shape[2])
         s = _pair(self.strides) if self.strides is not None else w
@@ -473,6 +479,7 @@ class QGlobalAvgPool(nn.Module):
         super().__init__()
         self.site = site
 
+    @traced('layer.QGlobalAvgPool')
     def forward(self, x, ctx: TapContext):
         y = torch.mean(x.float(), dim=(2, 3), keepdim=True).to(x.dtype)
         return _tap(ctx, y, self.site)
@@ -497,6 +504,7 @@ class Slot(nn.Module):
 class ReLU(Slot):
     """The ``nn.ReLU`` member of a torchvision ``Sequential`` (untapped)."""
 
+    @traced('layer.ReLU')
     def forward(self, x, ctx: TapContext):
         return relu(x)
 

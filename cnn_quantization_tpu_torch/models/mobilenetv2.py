@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..engine.context import TapContext
+from ..utils.spans import traced
 from .layers import QBatchNorm, QConv, QLinear, SiteNamer, run_all
 
 
@@ -60,6 +61,7 @@ class InvertedResidual(nn.Module):
             conv.append(QBatchNorm(out_ch, site=bn_site))
         self.conv = nn.ModuleList(conv)
 
+    @traced('layer.InvertedResidual')
     def forward(self, x, ctx: TapContext):
         out = x
         for i, m in enumerate(self.conv):

@@ -18,6 +18,7 @@ from torch import nn
 
 from ..engine.context import Site, TapContext
 from ..ops.kernels.int_matmul import quantize_sym_codes
+from ..utils.spans import traced
 from .layers import (PackedQTensor, QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool, QTensor,
                      SiteNamer, relu, run_all)
 
@@ -93,6 +94,7 @@ class BasicBlock(nn.Module):
         if s.has_downsample:
             self.downsample = _downsample(s)
 
+    @traced('layer.BasicBlock')
     def forward(self, x, ctx: TapContext):
         fold = self.spec.fold_bn
         x, identity = _serving_block_input(x, ctx, self.spec.conv_sites[0][0])
@@ -127,6 +129,7 @@ class Bottleneck(nn.Module):
         if s.has_downsample:
             self.downsample = _downsample(s)
 
+    @traced('layer.Bottleneck')
     def forward(self, x, ctx: TapContext, out_spec=False):
         """``out_spec``: False = the plain path; in packed serving ``ResNet``
         passes ('packed' | 'int8', the next block's input scale), or None for

@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ...utils import spans
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
@@ -102,12 +104,19 @@ def build_host_library(name: str) -> Path:
 
 def build_libraries(names) -> dict[str, tuple[Path, str, float]]:
     """Build several sources at once, one nvcc process each, all started
-    together; returns {name: (library path, nvcc output, seconds)}."""
+    together; returns {name: (library path, nvcc output, seconds)}.  The
+    ``kernels.load`` span holds one ``kernels.load.<name>`` span a library,
+    which counts whether nvcc ran (``built``) or found it built."""
     def timed(name):
-        t0 = time.perf_counter()
+        built = not library_path(name).exists()
+        t0 = time.perf_counter_ns()
         path, log = build_library(name)
-        return path, log, time.perf_counter() - t0
+        return path, log, t0, time.perf_counter_ns(), built
 
     names = list(names)
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
-        return dict(zip(names, pool.map(timed, names)))
+    with spans.span('kernels.load') as top:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=len(names)) as pool:
+            done = dict(zip(names, pool.map(timed, names)))
+    for name, (_, _, t0, t1, built) in done.items():
+        spans.add(f'kernels.load.{name}', t0, t1, parent=top, counts={'built': int(built)})
+    return {name: (path, log, (t1 - t0) / 1e9) for name, (path, log, t0, t1, _) in done.items()}

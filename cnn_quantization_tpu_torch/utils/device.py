@@ -7,6 +7,8 @@ import subprocess
 import numpy as np
 import torch
 
+from . import spans
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Without one, only an explicit ``'cpu'`` runs:
@@ -41,8 +43,12 @@ def nhwc_to_nchw(images, device) -> torch.Tensor:
     """NHWC images (numpy or tensor, as ``data/synthetic.py`` yields them)
     -> a float32 NCHW view on ``device``.  The permuted view of an NHWC
     buffer is exactly the channels_last memory format, so nothing is copied
-    beyond the move to the device."""
-    t = torch.as_tensor(images, dtype=torch.float32).to(device)
+    beyond the move to the device.  The move is the ``device.h2d`` span: from
+    pinned host memory it returns once the copy is done, which waits for the
+    work queued ahead of it."""
+    with spans.span('device.h2d') as s:
+        t = torch.as_tensor(images, dtype=torch.float32).to(device)
+        s.counts = {'bytes': t.numel() * 4}
     return t.permute(0, 3, 1, 2)
 
 
