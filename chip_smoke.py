@@ -220,6 +220,10 @@ CONV_SHAPES = {
 # the two serving shapes, the bench's int8-rate probe and VGG's first
 # classifier at batch 32
 TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048), (4096, 16384, 4096), (32, 25088, 4096))
+# the two heaviest ResNet-50 serving shapes of the epilogue features: layer1's
+# conv1 GEMM at batch 64 and its 3x3 conv2 at batch 128 ([N, C, H, W], O)
+CODES_TIMED_GEMM = (200704, 256, 64)
+CODES_TIMED_CONV = ((128, 64, 56, 56), 64)
 TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', '3x3_s1_c128_b128', '3x3_s1_c256_b128',
                '3x3_s1_c512_b128', '1x1_s2_c256', 'dw_s1_c144_b128', 'dw_s2_c96_b128',
                'inc_1x7_c128', 'shuf_g8_1x1_c768')
@@ -873,6 +877,53 @@ def int8_timing(device, card):
             bound_ms=bound_ms, bound_by=bound_by,
             tera_ops_per_s=ops / ms / 1e9, gb_per_s=nbytes / ms / 1e6))
     emit('int8_timing', card=card, **rows)
+    return rows
+
+
+def codes_epilogue_timing(device, card):
+    """The int8 kernels' epilogue features at ``CODES_TIMED_GEMM`` and
+    ``CODES_TIMED_CONV``: float32 out and int8 codes out (one frozen scale),
+    each without and with a residual in (int8 codes in the output's layout),
+    ReLU on, each held equal to its plain version before it is timed.  Bound:
+    the operations, or the bytes (the codes in, the weights, alpha and beta,
+    the residual, the output at 4 or 1 bytes) at the memory rate."""
+    gen = torch.Generator().manual_seed(6)
+    out_scale = torch.full((), 0.05, device=device)
+    m, k, n = CODES_TIMED_GEMM
+    a, b, alpha, beta = gemm_case(m, k, n, 127, gen, device)
+    cases = [(f'[{m},{k}]x[{k},{n}]', 'wgmma', (m, n), 2 * m * n * k, m * k + k * n + 8 * n,
+              lambda **f: im.int8_matmul_dequant(a, b, alpha, beta, fuse_relu=True, **f),
+              lambda **f: im.int8_matmul_dequant_plain(a, b, alpha, beta, fuse_relu=True, **f))]
+    shape, o = CODES_TIMED_CONV
+    (x, w, w_scale, bias), _ = conv_case('3x3_s1_c64', 127, gen, device)
+    x = int8_codes(shape, 127, gen, device).contiguous(memory_format=torch.channels_last)
+    calpha = w_scale * 0.05
+    kw = dict(strides=(1, 1), padding=(1, 1))
+    cases.append((f'{list(shape)} * {list(w.shape)} stride 1 padding [1, 1]', 'im2col_wgmma',
+                  (shape[0], o, shape[2], shape[3]), 2 * x.numel() * o * 9,
+                  x.numel() + w.numel() + 8 * o,
+                  lambda **f: ic.int8_conv_dequant(x, w, calpha, bias, fuse_relu=True, **kw, **f),
+                  lambda **f: ic.int8_conv_dequant_plain(x, w, calpha, bias, fuse_relu=True, **kw,
+                                                         **f)))
+    rows = []
+    for name, route, out_shape, ops, in_bytes, kernel, plain in cases:
+        res = (int8_codes(out_shape, 127, gen, device), torch.full((), 0.03, device=device))
+        if len(out_shape) == 4:
+            res = (res[0].contiguous(memory_format=torch.channels_last), res[1])
+        outs = int(np.prod(out_shape))
+        for codes in (False, True):
+            for with_res in (False, True):
+                f = dict(out_scale=out_scale if codes else None,
+                         residual=res if with_res else None)
+                check(torch.equal(kernel(**f), plain(**f)),
+                      f'{name} codes={codes} residual={with_res}: kernel != plain')
+                ms = cuda_ms(lambda: kernel(**f))
+                nbytes = in_bytes + outs * (1 if codes else 4) + (outs if with_res else 0)
+                bound_ms, bound_by = int8_bound_ms(ops, nbytes)
+                rows.append(dict(shape=name, route=route, out='int8' if codes else 'float32',
+                                 residual=with_res, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 x_bound=ms / bound_ms, gb_per_s=nbytes / ms / 1e6))
+    emit('codes_epilogue_timing', card=card, rows=rows)
     return rows
 
 
@@ -3196,6 +3247,7 @@ def main():
          bound_ms=bound_ms, achieved_gb_per_s=2 * act.numel() * 4 / ms / 1e6)
     del act
     timing = int8_timing(device, card)
+    codes_epilogue_timing(device, card)
     timing['int4_gemm'] = int4_timing(device, card)
     copy = stream_copy_timing(device, card)
 

@@ -131,16 +131,6 @@ __device__ __forceinline__ uint32_t quad_transpose(uint32_t w, int tig) {
   return out;
 }
 
-__device__ __forceinline__ void store_pair(int8_t* p, int c0, int c1, bool two) {
-  if (two && (reinterpret_cast<uintptr_t>(p) & 1u) == 0) {
-    *reinterpret_cast<char2*>(p) = make_char2(static_cast<signed char>(c0),
-                                              static_cast<signed char>(c1));
-  } else {
-    p[0] = static_cast<int8_t>(c0);
-    if (two) p[1] = static_cast<int8_t>(c1);
-  }
-}
-
 __device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -220,7 +210,7 @@ struct Int4Epilogue {
             const float v1 = two ? value(acc[mi][ni][h * 2 + 1], a1, b1, false, 0, 0.f) : 0.f;
             OutT* p = out + row * N + col;
             if constexpr (MODE == kInt8) {
-              store_pair(p, code(v0, os, q), code(v1, os, q), two);
+              cnnq::store_pair(p, code(v0, os, q), code(v1, os, q), two);
             } else {
               cnnq::store_pair(p, v0, v1, two);
             }
@@ -348,6 +338,7 @@ template <int MODE, bool GROUPED>
 struct Int4WgEpilogue {
   using OutT = typename Int4Epilogue<MODE, GROUPED>::OutT;
   static constexpr bool kSplitB = GROUPED;
+  static constexpr bool kResidualBox = false, kColumnsFirst = false;
   static constexpr bool kBytes = MODE == kInt8 || MODE == kPacked;
   Int4Epilogue<MODE, GROUPED> e;
   int M;
@@ -398,7 +389,8 @@ struct Int4WgEpilogue {
 
   template <int BN>
   __device__ __forceinline__ void store(const int (&acc)[BN / 2], const CUtensorMap* map_out,
-                                        int64_t row0, int n0, uint8_t* buf, int g) const {
+                                        int64_t row0, int n0, uint8_t* buf, int g, uint32_t,
+                                        int) const {
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int rl = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
     const bool leader = (threadIdx.x & 127) == 0;
@@ -428,7 +420,7 @@ struct Int4WgEpilogue {
             if (stage_out) {
               *reinterpret_cast<uint16_t*>(buf + at<BN>(r, 8 * j + 2 * t)) = byte_pair(v0, v1, os);
             } else if (row < M && in0) {
-              store_pair(e.out + row * N + c, code(v0, os, e.qmax), code(v1, os, e.qmax), in1);
+              cnnq::store_pair(e.out + row * N + c, code(v0, os, e.qmax), code(v1, os, e.qmax), in1);
             }
           } else if (row < M && in0) {
             cnnq::store_pair(e.out + row * N + c, v0, v1, in1);
@@ -565,7 +557,8 @@ int run_wgmma(const void* a, const Args& g) {
     }
   }
   if (!ok) return -1;
-  return cnnq::wg::launch<Int4Ring<BK>>(map_a, map_b, map_out, A{}, epi, g.M, g.N, g.K, g.stream);
+  return cnnq::wg::launch<Int4Ring<BK>>(map_a, map_b, map_out, CUtensorMap{}, A{}, epi, g.M, g.N,
+                                        g.K, g.stream);
 }
 
 // packed A: 128-byte boxes; unpacked A: 64-byte boxes for a K of at most 64

@@ -5,13 +5,19 @@
 // reaches through cnn_quantization_tpu/ops/kernels/int_conv.py: int8_conv
 // (:63-108); PyTorch on CUDA has no integer convolution.
 //
-//   out[n, ho, wo, o] = cast(relu?(float(acc) * alpha[o] + bias[o]))
+//   out[n, ho, wo, o] = cast(relu?(float(acc) * alpha[o] + bias[o]
+//                                  [+ float(res[n, ho, wo, o]) * res_scale]))
+//                     | the int8 codes of that value at out_scale
 //   acc = sum_{kh, kw, c} x[n, ho*sh - ph + kh, wo*sw - pw + kw, g*Cg + c]
 //                         * w[o, kh, kw, c]            (int32, exact)
 //
 // x is [N, H, W, C] int8 (an NCHW tensor in channels_last memory), w is
 // [O, KH, KW, Cg] int8 (an OIHW weight in channels_last memory, Cg = C /
-// groups), out is [N, Ho, Wo, O] float32 or bfloat16, g = o / (O / groups).
+// groups), out is [N, Ho, Wo, O] float32 or bfloat16, or int8 codes where
+// out_scale is given, g = o / (O / groups); res, where given, is int8 codes
+// in out's layout.  Codes out and the residual are the tensor-core routes'
+// (the epilogues of int8_mma.cuh and int8_wgmma.cuh); the depthwise route has
+// neither, and int_conv composes them in PyTorch there.
 // Positions outside the image contribute 0: zero padding in the integer
 // domain, exact at zero point 0.
 //
@@ -293,26 +299,51 @@ int launch_depthwise(const void* x, const void* w, void* out, const void* alpha,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename OutT, bool RES>
+int conv(int route, const void* x, const cnnq::EpiArgs& args, const void* w, int n, int h, int wd,
+         int c, int o, int kh, int kw, int sh, int sw, int ph, int pw, int groups, int ho, int wo,
+         cudaStream_t s) {
+  if (route == 2) {
+    return cnnq::wg::launch_int8_conv_wgmma<OutT, RES>(x, w, args, n, h, wd, c, o, kh, kw, sh, sw,
+                                                       ph, pw, ho, wo, s);
+  }
+  const int cg = c / groups;
+  const int64_t K = static_cast<int64_t>(kh) * kw * cg;
+  if (K > 2147483647LL - 64) return -1;
+  const int8_t* xp = static_cast<const int8_t*>(x);
+  const ConvA A{xp, static_cast<int64_t>(n) * ho * wo, h, wd, c, cg, kw, sh, sw, ph, pw, ho, wo,
+                static_cast<int>(K), (cg % 16 == 0) && (reinterpret_cast<uintptr_t>(xp) % 16 == 0)};
+  return cnnq::launch_int8_dequant<ConvA, OutT, RES>(A, w, args, A.M, o / groups, K, o, groups, s);
+}
+
 }  // namespace
 
-// out_dtype: 0 = float32, 1 = bfloat16.  bias may be null.  route: 2 = TMA
-// im2col + wgmma, 1 = direct depthwise, 0 = implicit GEMM on mma.sync; 1
-// and 2 must be the route the shape takes, 0 takes any shape.
-// Returns cudaGetLastError() after the launch, or -1 for arguments the kernel
-// does not take; the caller raises on any non-zero code.
+// out_dtype: 0 = float32, 1 = bfloat16: the output's type, or with codes out
+// the type the value travels in.  bias may be null.  out_scale: null for a
+// float output, else one float32 in device memory (os_vec 0) or one an output
+// channel (os_vec 1), and out is int8 codes clamped to +-out_qmax.  res: null,
+// or int8 codes in out's layout added at the float32 res_scale before the
+// ReLU.  Neither on route 1.  route: 2 = TMA im2col + wgmma, 1 = direct
+// depthwise, 0 = implicit GEMM on mma.sync; 1 and 2 must be the route the
+// shape takes, 0 takes any shape.  Returns cudaGetLastError() after the
+// launch, or -1 for arguments the kernel does not take; the caller raises on
+// any non-zero code.
 extern "C" int cnnq_int8_conv(const void* x, const void* w, void* out, const void* alpha,
-                              const void* bias, int n, int h, int wd, int c, int o, int kh, int kw,
-                              int sh, int sw, int ph, int pw, int groups, int relu, int out_dtype,
-                              int route, void* stream) {
+                              const void* bias, const void* out_scale, const void* res,
+                              const void* res_scale, int n, int h, int wd, int c, int o, int kh,
+                              int kw, int sh, int sw, int ph, int pw, int groups, int relu,
+                              int out_dtype, int os_vec, float out_qmax, int route, void* stream) {
   if (n < 0 || h <= 0 || wd <= 0 || c <= 0 || o <= 0 || kh <= 0 || kw <= 0 || sh <= 0 || sw <= 0 ||
       ph < 0 || pw < 0 || groups <= 0 || c % groups != 0 || o % groups != 0 || out_dtype < 0 ||
       out_dtype > 1) {
     return -1;
   }
+  if (res != nullptr && res_scale == nullptr) return -1;
   const int want = (groups == c && c == o)
                        ? 1
                        : cnnq::wg::im2col_describable(x, w, c, groups, kh, kw, sh, sw, ph, pw) ? 2 : 0;
   if (route != want && route != 0) return -1;
+  if (route == 1 && (out_scale != nullptr || res != nullptr)) return -1;
   const int ho = (h + 2 * ph - kh) / sh + 1, wo = (wd + 2 * pw - kw) / sw + 1;
   if (h + 2 * ph < kh || wd + 2 * pw < kw) return -1;
   const int64_t M = static_cast<int64_t>(n) * ho * wo;
@@ -325,29 +356,26 @@ extern "C" int cnnq_int8_conv(const void* x, const void* w, void* out, const voi
                           : launch_depthwise<__nv_bfloat16>(x, w, out, alpha, bias, M, h, wd, c, kh,
                                                             kw, sh, sw, ph, pw, ho, wo, relu, s);
   }
-  if (route == 2) {
-    const int rc = out_dtype == 0
-                       ? cnnq::wg::launch_int8_conv_wgmma<float>(x, w, out, alpha, bias, n, h, wd, c, o,
-                                                                 kh, kw, sh, sw, ph, pw, ho, wo, relu, s)
-                       : cnnq::wg::launch_int8_conv_wgmma<__nv_bfloat16>(
-                             x, w, out, alpha, bias, n, h, wd, c, o, kh, kw, sh, sw, ph, pw, ho, wo,
-                             relu, s);
-    if (rc != 0) return rc;
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int cg = c / groups;
-  const int64_t K = static_cast<int64_t>(kh) * kw * cg;
-  if (K > 2147483647LL - 64) return -1;
-  const int8_t* xp = static_cast<const int8_t*>(x);
-  const ConvA A{xp, M, h, wd, c, cg, kw, sh, sw, ph, pw, ho, wo, static_cast<int>(K),
-                (cg % 16 == 0) && (reinterpret_cast<uintptr_t>(xp) % 16 == 0)};
+  const cnnq::EpiArgs args{out, static_cast<const float*>(alpha), static_cast<const float*>(bias),
+                           relu, out_dtype, static_cast<const float*>(out_scale), os_vec, out_qmax,
+                           static_cast<const int8_t*>(res), static_cast<const float*>(res_scale)};
+  const bool r = res != nullptr;
   int rc;
-  if (out_dtype == 0) {
-    rc = cnnq::launch_int8_dequant<ConvA, float>(A, w, out, alpha, bias, M, o / groups, K, o, groups,
-                                             relu, s);
+  if (out_scale != nullptr) {
+    rc = r ? conv<int8_t, true>(route, x, args, w, n, h, wd, c, o, kh, kw, sh, sw, ph, pw, groups, ho,
+                                wo, s)
+           : conv<int8_t, false>(route, x, args, w, n, h, wd, c, o, kh, kw, sh, sw, ph, pw, groups,
+                                 ho, wo, s);
+  } else if (out_dtype == 0) {
+    rc = r ? conv<float, true>(route, x, args, w, n, h, wd, c, o, kh, kw, sh, sw, ph, pw, groups, ho,
+                               wo, s)
+           : conv<float, false>(route, x, args, w, n, h, wd, c, o, kh, kw, sh, sw, ph, pw, groups, ho,
+                                wo, s);
   } else {
-    rc = cnnq::launch_int8_dequant<ConvA, __nv_bfloat16>(A, w, out, alpha, bias, M, o / groups, K, o,
-                                                     groups, relu, s);
+    rc = r ? conv<__nv_bfloat16, true>(route, x, args, w, n, h, wd, c, o, kh, kw, sh, sw, ph, pw,
+                                       groups, ho, wo, s)
+           : conv<__nv_bfloat16, false>(route, x, args, w, n, h, wd, c, o, kh, kw, sh, sw, ph, pw,
+                                        groups, ho, wo, s);
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());

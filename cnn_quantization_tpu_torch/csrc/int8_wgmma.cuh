@@ -70,10 +70,21 @@
 // ran at a fraction of the memory rate with stores from the threads.
 // Otherwise (BN = 256, or rows that are not a multiple of 16 bytes) each lane
 // stores its chunks itself, element by element beyond N, and rows beyond M are
-// not stored.
+// not stored.  With a residual in (int8_mma.cuh), each value adds its code
+// first.  With codes out, each lane requantizes its two columns of each row
+// of a slab into one 16-bit pair; where the output rows are a multiple of 16
+// bytes and BN <= 128, the pairs go into one staging box of 64 rows x BN bytes
+// with the swizzle of that width and one TMA store writes them out, else each
+// lane stores its pairs.  Codes out with a residual in load the residual's
+// box of each tile by TMA a tile ahead, into one of two slots beside the
+// staging box (an mbarrier each), so each lane reads its pair's residual
+// codes from shared memory; without the box (ragged rows, a misaligned
+// residual) each lane reads them from memory.  Both features take 64-column
+// tiles (DequantOut::kColumnsFirst).
 //
 // Numerics as the mma.sync routes: exact int32 sums, __fmul_rn then __fadd_rn
-// then fmaxf then the cast, built with --fmad=false.
+// then fmaxf then the cast or the codes (rintf(__fdiv_rn(v, s)), clamped),
+// built with --fmad=false.
 
 #pragma once
 
@@ -131,7 +142,7 @@ constexpr size_t smem_bytes() {
   // the stages, the two warpgroups' staging buffers, two mbarriers a stage,
   // and slack to align the stages to the 1024-byte swizzle atom
   return static_cast<size_t>(R::kStages) * (kBM + R::kBN) * R::kBK +
-         2 * static_cast<size_t>(Epi::template staging_bytes<R::kBN>()) + 16 * R::kStages + 1024;
+         2 * static_cast<size_t>(Epi::template staging_bytes<R::kBN>()) + 16 * R::kStages + 32 + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -260,29 +271,23 @@ __device__ __forceinline__ void wgmma_tile(int (&d)[BN / 2], uint64_t da, uint64
   }
 }
 
-__device__ __forceinline__ float dequant_at(int acc, const float* __restrict__ alpha,
-                                            const float* __restrict__ beta, int col, int N,
-                                            bool relu) {
-  return col < N ? dequant(acc, alpha[col], beta, col, relu) : 0.f;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Regroups one consumer warpgroup's sums of slabs j0 .. j1 - 1 (8 columns
-// each; j0, j1 even) into 16-byte chunks of dequantized values and calls
-// emit(row, col, chunk) for each chunk of this lane: row inside the
-// warpgroup's 64, col the tile column of the chunk's first value.  float32:
-// the two lanes of a pair swap one row's two values by a shuffle, so a lane
-// holds four consecutive columns of one row; bfloat16: the four lanes of a
-// quad transpose their four 32-bit words (two slabs x two rows), so a lane
-// holds eight consecutive columns of one row.  Every lane must call it.
-template <typename OutT, int BN, typename Emit>
-__device__ __forceinline__ void regroup(const int (&acc)[BN / 2], const float* __restrict__ alpha,
-                                        const float* __restrict__ beta, int n0, int N, bool relu,
-                                        int j0, int j1, Emit emit) {
+// each; j0, j1 even) into 16-byte chunks of values val(sum, r, col) (r the row
+// inside the warpgroup's 64, col the output column) and calls emit(row, col,
+// chunk) for each chunk of this lane: row inside the warpgroup's 64, col the
+// tile column of the chunk's first value.  float32: the two lanes of a pair
+// swap one row's two values by a shuffle, so a lane holds four consecutive
+// columns of one row; bfloat16: the four lanes of a quad transpose their four
+// 32-bit words (two slabs x two rows), so a lane holds eight consecutive
+// columns of one row.  Every lane must call it.
+template <typename OutT, int BN, typename Val, typename Emit>
+__device__ __forceinline__ void regroup(const int (&acc)[BN / 2], int n0, int j0, int j1, Val val,
+                                        Emit emit) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int rl = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
   if constexpr (sizeof(OutT) == 4) {
@@ -290,10 +295,10 @@ __device__ __forceinline__ void regroup(const int (&acc)[BN / 2], const float* _
 #pragma unroll
     for (int j = j0; j < j1; ++j) {
       const int c = n0 + 8 * j + 2 * t;
-      const float v0 = dequant_at(acc[4 * j + 0], alpha, beta, c, N, relu);
-      const float v1 = dequant_at(acc[4 * j + 1], alpha, beta, c + 1, N, relu);
-      const float v2 = dequant_at(acc[4 * j + 2], alpha, beta, c, N, relu);
-      const float v3 = dequant_at(acc[4 * j + 3], alpha, beta, c + 1, N, relu);
+      const float v0 = val(acc[4 * j + 0], rl, c);
+      const float v1 = val(acc[4 * j + 1], rl, c + 1);
+      const float v2 = val(acc[4 * j + 2], rl + 8, c);
+      const float v3 = val(acc[4 * j + 3], rl + 8, c + 1);
       // the even lane keeps row rl and takes its partner's two columns of rl;
       // the odd lane keeps row rl + 8 and takes its partner's of rl + 8
       const float q0 = __shfl_xor_sync(0xffffffffu, even ? v2 : v0, 1);
@@ -312,10 +317,8 @@ __device__ __forceinline__ void regroup(const int (&acc)[BN / 2], const float* _
       for (int s = 0; s < 2; ++s) {
         const int c = n0 + 8 * (j + s) + 2 * t;
         const int* a = &acc[4 * (j + s)];
-        w[2 * s] = pack_bf16(dequant_at(a[0], alpha, beta, c, N, relu),
-                             dequant_at(a[1], alpha, beta, c + 1, N, relu));
-        w[2 * s + 1] = pack_bf16(dequant_at(a[2], alpha, beta, c, N, relu),
-                                 dequant_at(a[3], alpha, beta, c + 1, N, relu));
+        w[2 * s] = pack_bf16(val(a[0], rl, c), val(a[1], rl, c + 1));
+        w[2 * s + 1] = pack_bf16(val(a[2], rl + 8, c), val(a[3], rl + 8, c + 1));
       }
       // lane t ends with word t of every lane of the quad, in column order
       uint32_t o[4] = {0u, 0u, 0u, 0u};
@@ -335,13 +338,11 @@ __device__ __forceinline__ void regroup(const int (&acc)[BN / 2], const float* _
 // The direct epilogue: each lane stores its chunks; rows beyond M are
 // skipped, and a chunk reaching beyond N, or any chunk where `vec` is false
 // (rows not a multiple of 16 bytes), goes element by element.
-template <int BN, typename OutT>
-__device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], OutT* out,
-                                           const float* __restrict__ alpha,
-                                           const float* __restrict__ beta, int64_t row0, int n0,
-                                           int64_t M, int N, bool relu, bool vec) {
+template <int BN, typename OutT, typename Val>
+__device__ __forceinline__ void store_tile(const int (&acc)[BN / 2], OutT* out, Val val, int64_t row0,
+                                           int n0, int64_t M, int N, bool vec) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(OutT));
-  regroup<OutT, BN>(acc, alpha, beta, n0, N, relu, 0, BN / 8, [&](int r, int c, uint4 v) {
+  regroup<OutT, BN>(acc, n0, 0, BN / 8, val, [&](int r, int c, uint4 v) {
     const int64_t row = row0 + r;
     const int col = n0 + c;
     if (row >= M) return;
@@ -381,19 +382,18 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
 // then one thread hands the boxes to TMA, which writes whole rows and clips
 // rows beyond M and columns beyond N.  Before a pass overwrites the boxes,
 // that thread waits until the previous pass's stores have read them.
-template <int BN, typename OutT>
+template <int BN, typename OutT, typename Val>
 __device__ __forceinline__ void store_tile_staged(const int (&acc)[BN / 2], const CUtensorMap* map,
-                                                  const float* __restrict__ alpha,
-                                                  const float* __restrict__ beta, int64_t row0,
-                                                  int n0, int N, bool relu, uint8_t* buf, int g) {
+                                                  Val val, int64_t row0, int n0, uint8_t* buf,
+                                                  int g) {
   using S = Staging<BN, OutT>;
   const bool leader = (threadIdx.x & 127) == 0;
 #pragma unroll
   for (int p = 0; p < S::kPasses; ++p) {
     if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     warpgroup_sync(g);
-    regroup<OutT, BN>(acc, alpha, beta, n0, N, relu, p * S::kPassCols / 8,
-                      (p + 1) * S::kPassCols / 8, [&](int r, int c, uint4 v) {
+    regroup<OutT, BN>(acc, n0, p * S::kPassCols / 8, (p + 1) * S::kPassCols / 8, val,
+                      [&](int r, int c, uint4 v) {
                         const int bytes = (c - p * S::kPassCols) * static_cast<int>(sizeof(OutT));
                         const int box = bytes >> 7, chunk = (bytes & 127) >> 4;
                         *reinterpret_cast<uint4*>(buf + box * (64 * 128) + r * 128 +
@@ -463,32 +463,215 @@ struct Im2colA {
 
 // ------------------------------------------------------ the dequant epilogue
 
-// out[m, n] = cast(relu?(float(acc) * alpha[n] + beta[n])), [M, N] row-major
-template <typename OutT>
+// out[m, n] = cast(relu?(float(acc) * alpha[n] + beta[n] [+ residual])), or
+// that value's int8 codes (OutT = int8_t), [M, N] row-major; the value and the
+// features as DequantEpilogue's (int8_mma.cuh)
+template <typename OutT, bool RES = false>
 struct DequantOut {
   static constexpr bool kSplitB = false;  // Bt's BN rows in one box from n0
+  static constexpr bool kCodes = kIsCodes<OutT>;
+  // codes out with a residual in: the residual's box of a tile comes by TMA
+  // a tile ahead into one of two slots beside the staging box
+  static constexpr bool kResidualBox = kCodes && RES;
+  // codes out or a residual in: 64-column tiles (the epilogue's registers
+  // beside 64 columns of sums spill at two blocks an SM), walked along N
+  // first so that the blocks working on one row block at a time share its A
+  // tiles in L2
+  static constexpr bool kColumnsFirst = kCodes || RES;
   OutT* out;
   const float* alpha;
   const float* beta;  // may be null
   int M, N;
   int relu;
   int vec;  // rows a multiple of 16 bytes and out 16-byte aligned: map_out is set up
+  int res_box;  // kResidualBox, staged, the residual 16-byte aligned: map_res is set up
+  EpiArgs x;  // the codes' and the residual's operands
 
+  // codes: one box of 64 rows x BN bytes a warpgroup
+  template <int BN>
+  __host__ __device__ static constexpr bool staged() {
+    return BN <= 128;
+  }
   template <int BN>
   __host__ __device__ static constexpr int staging_bytes() {
-    return Staging<BN, OutT>::kBytes;
+    if constexpr (kCodes) {
+      return staged<BN>() ? (kResidualBox ? 3 : 1) * 64 * BN : 0;
+    } else {
+      return Staging<BN, OutT>::kBytes;
+    }
   }
 
+  // the warpgroup's residual box of a tile (64 rows x BN bytes from (row0,
+  // n0), with the staging box's swizzle) into residual slot `slot` after the
+  // staging box, its bytes completing on the slot's mbarrier bars + 8 * slot.
+  // The slot's last reads (the epilogue two tiles back) ended at a
+  // warpgroup barrier.
+  template <int BN>
+  __device__ __forceinline__ void prefetch(const CUtensorMap* map_res, int64_t row0, int n0,
+                                           uint8_t* buf, uint32_t bars, int slot) const {
+    if (res_box == 0 || (threadIdx.x & 127) != 0) return;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bars + 8 * slot, 64 * BN);
+    tma_load_2d(smem_u32(buf + (1 + slot) * 64 * BN), map_res, bars + 8 * slot, n0,
+                static_cast<int>(row0));
+  }
+
+  // the warpgroup's k-th tile; bars: its residual slots' mbarriers
   template <int BN>
   __device__ __forceinline__ void store(const int (&acc)[BN / 2], const CUtensorMap* map_out,
-                                        int64_t row0, int n0, uint8_t* buf, int g) const {
-    if constexpr (Staging<BN, OutT>::kOn) {
-      if (vec != 0) {
-        store_tile_staged<BN, OutT>(acc, map_out, alpha, beta, row0, n0, N, relu != 0, buf, g);
-        return;
+                                        int64_t row0, int n0, uint8_t* buf, int g, uint32_t bars,
+                                        int k) const {
+    if constexpr (kCodes) {
+      store_codes<BN>(acc, map_out, row0, n0, buf, g, bars, k);
+    } else if constexpr (!RES) {
+      const auto val = [&](int a, int, int c) {
+        return c < N ? dequant(a, alpha[c], beta, c, relu != 0) : 0.f;
+      };
+      if constexpr (Staging<BN, OutT>::kOn) {
+        if (vec != 0) {
+          store_tile_staged<BN, OutT>(acc, map_out, val, row0, n0, buf, g);
+          return;
+        }
+      }
+      store_tile<BN, OutT>(acc, out, val, row0, n0, M, N, vec != 0);
+    } else {
+      // a float output with a residual in: the last conv of a block that
+      // hands floats on (to the average pool)
+      const float rs = *x.res_scale;
+      const auto val = [&](int a, int r, int c) {
+        const int64_t row = row0 + r;
+        if (c >= N || row >= M) return 0.f;
+        return epi_value(a, alpha[c], beta != nullptr ? beta[c] : 0.f, beta != nullptr,
+                         relu != 0, true, std::is_same<OutT, __nv_bfloat16>::value,
+                         x.res[row * N + c], rs);
+      };
+      if constexpr (Staging<BN, OutT>::kOn) {
+        if (vec != 0) {
+          store_tile_staged<BN, OutT>(acc, map_out, val, row0, n0, buf, g);
+          return;
+        }
+      }
+      store_tile<BN, OutT>(acc, out, val, row0, n0, M, N, vec != 0);
+    }
+  }
+
+  // codes out: each lane's two columns of a slab in one row as a 16-bit pair,
+  // into the staging box (16-byte chunk c of box row r at the swizzle of a
+  // BN-byte row) or straight to memory.  With the residual's box in a slot,
+  // each lane reads its pair's residual codes at the same place in the slot.
+  // The quotients take div.rn's fast steps
+  // (int8_mma.cuh); where one of a lane's operands leaves their range, the
+  // lane runs its part of the tile again with __fdiv_rn.
+  template <int BN>
+  __device__ __forceinline__ void store_codes(const int (&acc)[BN / 2], const CUtensorMap* map_out,
+                                              int64_t row0, int n0, uint8_t* buf, int g,
+                                              uint32_t bars, int k) const {
+    const bool leader = (threadIdx.x & 127) == 0;
+    const bool stage = staged<BN>() && vec != 0, box = RES && res_box != 0;
+    const uint8_t* slot = buf + (1 + (k & 1)) * 64 * BN;
+    if (box) mbar_wait(bars + 8 * (k & 1), (k >> 1) & 1);
+    if (stage) {
+      // the previous tile's stores must have read the box
+      if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      warpgroup_sync(g);
+    }
+    bool slow;
+    if (stage) {
+      if constexpr (RES) {
+        slow = box ? codes_pass<BN, true, true, false>(acc, row0, n0, buf, slot)
+                   : codes_pass<BN, true, false, false>(acc, row0, n0, buf, slot);
+      } else {
+        slow = codes_pass<BN, true, false, false>(acc, row0, n0, buf, slot);
+      }
+    } else {
+      slow = codes_pass<BN, false, false, false>(acc, row0, n0, buf, slot);
+    }
+    if (slow) {
+      if (stage) {
+        codes_pass<BN, true, false, true>(acc, row0, n0, buf, slot);
+      } else {
+        codes_pass<BN, false, false, true>(acc, row0, n0, buf, slot);
       }
     }
-    store_tile<BN, OutT>(acc, out, alpha, beta, row0, n0, M, N, relu != 0, vec != 0);
+    if (stage) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(g);
+      if (leader) {
+        tma_store_2d(map_out, smem_u32(buf), n0, static_cast<int>(row0));
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+    }
+  }
+
+  // One pass of the codes epilogue over this lane's part of the tile, its
+  // choices fixed so that a slab is straight-line code: STAGE, into the
+  // staging box (else to memory); BOX, the residual from the slot (else
+  // from memory); EXACT, every quotient by __fdiv_rn (else by div.rn's
+  // fast steps, returning whether an operand left their range).  Columns
+  // beyond N compute with column N - 1's parameters and are not stored (TMA
+  // clips them).
+  template <int BN, bool STAGE, bool BOX, bool EXACT>
+  __device__ __forceinline__ bool codes_pass(const int (&acc)[BN / 2], int64_t row0, int n0,
+                                             uint8_t* buf, const uint8_t* slot) const {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int rl = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+    const bool bf16 = x.bf16 != 0, has_beta = beta != nullptr;
+    const float rs = RES ? __ldg(x.res_scale) : 0.f;
+    const Divisor d_all = divisor(x.os_vec != 0 ? 1.f : __ldg(x.out_scale));
+    bool slow = !d_all.ok;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int tc = 8 * j + 2 * t, c = n0 + tc;
+      const bool in0 = c < N, in1 = c + 1 < N;
+      const int c0 = in0 ? c : N - 1, c1 = in1 ? c + 1 : N - 1;
+      const float a0 = __ldg(alpha + c0), a1 = __ldg(alpha + c1);
+      const float b0 = has_beta ? __ldg(beta + c0) : 0.f, b1 = has_beta ? __ldg(beta + c1) : 0.f;
+      Divisor d0 = d_all, d1 = d_all;
+      if (x.os_vec != 0) {
+        d0 = divisor(__ldg(x.out_scale + c0));
+        d1 = divisor(__ldg(x.out_scale + c1));
+        slow = slow | !d0.ok | !d1.ok;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rl + 8 * h;
+        const int64_t row = row0 + r;
+        const int* a = &acc[4 * j + 2 * h];
+        int off = r * BN + tc;
+        off ^= ((off >> 7) & (BN / 16 - 1)) << 4;
+        int r0 = 0, r1 = 0;
+        if constexpr (BOX) {
+          const char2 p = *reinterpret_cast<const char2*>(slot + off);
+          r0 = p.x;
+          r1 = p.y;
+        } else if constexpr (RES) {
+          if (row < M && in0) load_pair(x.res + row * N + c, in1, r0, r1);
+        }
+        float v0 = epi_value(a[0], a0, b0, has_beta, relu != 0, RES, bf16, r0, rs);
+        float v1 = epi_value(a[1], a1, b1, has_beta, relu != 0, RES, bf16, r1, rs);
+        if (bf16) {
+          v0 = round_bf16(v0);
+          v1 = round_bf16(v1);
+        }
+        float quo0, quo1;
+        if constexpr (EXACT) {
+          quo0 = __fdiv_rn(v0, d0.s);
+          quo1 = __fdiv_rn(v1, d1.s);
+        } else {
+          quo0 = fast_quotient(v0, d0);
+          quo1 = fast_quotient(v1, d1);
+          slow = slow | !in_quotient_range(v0) | !in_quotient_range(v1);
+        }
+        const int q0 = code_of(quo0, x.qmax), q1 = code_of(quo1, x.qmax);
+        if constexpr (STAGE) {
+          *reinterpret_cast<uint16_t*>(buf + off) =
+              static_cast<uint16_t>((q0 & 0xFF) | ((q1 & 0xFF) << 8));
+        } else if (row < M && in0) {
+          store_pair(out + row * N + c, q0, q1, in1);
+        }
+      }
+    }
+    return slow;
   }
 };
 
@@ -506,15 +689,33 @@ __device__ __forceinline__ uint4 unpack_chunk(uint4 w, bool high) {
 // ---------------------------------------------------------------- the kernel
 
 // R: the Ring; A: the A loader; Epi: the epilogue (staging_bytes<BN>() a
-// warpgroup, store<BN>(acc, map_out, row0, n0, staging, g), called by every
-// thread of the warpgroup; with kSplitB, the Bt tile is two boxes of BN / 2
-// rows from b_row(n0, 0) and b_row(n0, 1)).  K counts int8 codes; the maps'
-// boxes are R::kBK bytes of K wide, with the swizzle of that width.
+// warpgroup, store<BN>(acc, map_out, row0, n0, staging, g, bars, k) for the
+// warpgroup's k-th tile, called by every thread of the warpgroup; with
+// kSplitB, the Bt tile is two boxes of BN / 2 rows from b_row(n0, 0) and
+// b_row(n0, 1); with kResidualBox, prefetch<BN>(map_res, row0, n0, staging,
+// bars, slot) loads a tile's residual a tile ahead, slots alternating, each
+// completing on its mbarrier of the warpgroup's two at bars).  K counts int8
+// codes; the maps' boxes are R::kBK bytes of K wide, with the swizzle of that
+// width.
+// the origin (m0, n0) of tile t of num_m x num_n: M first, or N first where
+// the epilogue asks for it
+template <typename Epi>
+__device__ __forceinline__ void tile_origin(int t, int num_m, int num_n, int bn, int& m0, int& n0) {
+  if constexpr (Epi::kColumnsFirst) {
+    m0 = (t / num_n) * kBM;
+    n0 = (t % num_n) * bn;
+  } else {
+    m0 = (t % num_m) * kBM;
+    n0 = (t / num_m) * bn;
+  }
+}
+
 template <typename R, typename A, typename Epi>
 __global__ void __launch_bounds__(kThreads, R::kMinBlocks)
 wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-             const __grid_constant__ CUtensorMap map_out, const A loader, const Epi epi, int M, int N,
-             int K) {
+             const __grid_constant__ CUtensorMap map_out,
+             const __grid_constant__ CUtensorMap map_res, const A loader, const Epi epi, int M,
+             int N, int K) {
   constexpr int BN = R::kBN, kStages = R::kStages, BK = R::kBK;
   constexpr uint32_t kABytes = kBM * BK, kStageBytes = (kBM + BN) * BK;
   constexpr int kStaging = Epi::template staging_bytes<BN>();
@@ -523,16 +724,18 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = smem_u32(smem_raw);
   // stage s at tiles0 + s * kStageBytes (A at its start, Bt at kABytes), then
-  // the staging buffers, then kStages `full` mbarriers and kStages `empty` ones
+  // the staging buffers, then kStages `full` mbarriers, kStages `empty` ones
+  // and one for each consumer warpgroup's epilogue
   const uint32_t pad = (1024u - (base & 1023u)) & 1023u;
   const uint32_t tiles0 = base + pad;
   uint8_t* const stages = smem_raw + pad;
   uint8_t* const staging = stages + kStages * kStageBytes;
   const uint32_t full0 = tiles0 + kStages * kStageBytes + 2 * kStaging;
   const uint32_t empty0 = full0 + 8 * kStages;
+  const uint32_t epi0 = empty0 + 8 * kStages;
 
-  const int num_m = (M + kBM - 1) / kBM;
-  const int tiles = num_m * ((N + BN - 1) / BN);
+  const int num_m = (M + kBM - 1) / kBM, num_n = (N + BN - 1) / BN;
+  const int tiles = num_m * num_n;
   const int kblocks = (K + BK - 1) / BK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -541,6 +744,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
+    for (int b = 0; b < 4; ++b) mbar_init(epi0 + 8 * b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -551,7 +755,8 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile % num_m) * kBM, n0 = (tile / num_m) * BN;
+        int m0, n0;
+        tile_origin<Epi>(tile, num_m, num_n, BN, m0, n0);
         const typename A::At at = loader.at(m0);
         for (int kb = 0; kb < kblocks; ++kb) {
           const uint32_t dst = tiles0 + stage * kStageBytes, bar = full0 + 8 * stage;
@@ -588,11 +793,31 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
 
   // the consumers: warpgroup g owns rows 64g .. 64g + 63 of each tile
   const int g = warp >> 2;
+  const uint32_t epi_bars = epi0 + 16 * g;
+  uint8_t* const buf = staging + g * kStaging;
   int acc[BN / 2];
   int stage = 0;
   uint32_t phase = 0;
+  int k = 0;  // the warpgroup's tiles so far
+  if constexpr (Epi::kResidualBox) {
+    if (static_cast<int>(blockIdx.x) < tiles) {
+      int m0, n0;
+      tile_origin<Epi>(blockIdx.x, num_m, num_n, BN, m0, n0);
+      epi.template prefetch<BN>(&map_res, static_cast<int64_t>(m0) + 64 * g, n0, buf, epi_bars, 0);
+    }
+  }
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile % num_m) * kBM, n0 = (tile / num_m) * BN;
+    int m0, n0;
+    tile_origin<Epi>(tile, num_m, num_n, BN, m0, n0);
+    if constexpr (Epi::kResidualBox) {
+      const int next = tile + gridDim.x;
+      if (next < tiles) {
+        int m1, n1;
+        tile_origin<Epi>(next, num_m, num_n, BN, m1, n1);
+        epi.template prefetch<BN>(&map_res, static_cast<int64_t>(m1) + 64 * g, n1, buf, epi_bars,
+                                  (k + 1) & 1);
+      }
+    }
     for (int kb = 0; kb < kblocks; ++kb) {
       mbar_wait(full0 + 8 * stage, phase);
       const uint32_t sa = tiles0 + stage * kStageBytes;
@@ -628,8 +853,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ 
         phase ^= 1;
       }
     }
-    epi.template store<BN>(acc, &map_out, static_cast<int64_t>(m0) + 64 * g, n0,
-                           staging + g * kStaging, g);
+    epi.template store<BN>(acc, &map_out, static_cast<int64_t>(m0) + 64 * g, n0, buf, g, epi_bars,
+                           k);
+    ++k;
   }
   // the last TMA stores must have read shared memory before the block ends
   if ((threadIdx.x & 127) == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -717,6 +943,7 @@ inline bool make_im2col_map(CUtensorMap* map, const void* x, int n, int h, int w
 
 inline CUtensorMapDataType map_type(float*) { return CU_TENSOR_MAP_DATA_TYPE_FLOAT32; }
 inline CUtensorMapDataType map_type(__nv_bfloat16*) { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
+inline CUtensorMapDataType map_type(int8_t*) { return CU_TENSOR_MAP_DATA_TYPE_UINT8; }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -753,7 +980,8 @@ inline int pick_bn(int64_t N, int64_t K) {
 // reads cudaGetLastError).
 template <typename R, typename A, typename Epi>
 int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const CUtensorMap& map_out,
-           const A& loader, const Epi& epi, int64_t M, int64_t N, int64_t K, cudaStream_t stream) {
+           const CUtensorMap& map_res, const A& loader, const Epi& epi, int64_t M, int64_t N,
+           int64_t K, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<R, Epi>();
   auto kernel = wgmma_kernel<R, A, Epi>;
   static int slots[kMaxDevices] = {};  // SMs x resident blocks an SM; 0 = not set up, -1 = failed
@@ -773,56 +1001,72 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const CUtensorMap
   const int64_t tiles = ((M + kBM - 1) / kBM) * ((N + R::kBN - 1) / R::kBN);
   if (tiles > 2147483647LL) return -1;
   const int grid = static_cast<int>(tiles < slots[device] ? tiles : slots[device]);
-  kernel<<<grid, kThreads, smem, stream>>>(map_a, map_b, map_out, loader, epi, static_cast<int>(M),
-                                           static_cast<int>(N), static_cast<int>(K));
+  kernel<<<grid, kThreads, smem, stream>>>(map_a, map_b, map_out, map_res, loader, epi,
+                                           static_cast<int>(M), static_cast<int>(N),
+                                           static_cast<int>(K));
   return 0;
 }
 
-// The dequant epilogue's output map (staged stores) where the tile width
-// stages and the rows are a multiple of 16 bytes; returns false on a failed
-// encode.
-template <int BN, typename OutT>
-bool dequant_out(DequantOut<OutT>* epi, CUtensorMap* map_out) {
-  epi->vec = (static_cast<int64_t>(epi->N) * static_cast<int64_t>(sizeof(OutT))) % 16 == 0 &&
-             aligned16(epi->out);
-  if (!Staging<BN, OutT>::kOn || epi->vec == 0) return true;
-  return make_map(map_out, map_type(epi->out), static_cast<int>(sizeof(OutT)), epi->out, epi->M,
-                  epi->N, 64);
+// The dequant epilogue over [M, N], with its output map (staged stores)
+// where the tile width stages and the rows are a multiple of 16 bytes;
+// returns false on a failed encode.
+template <int BN, typename OutT, bool RES>
+bool dequant_out(const EpiArgs& args, int64_t M, int64_t N, DequantOut<OutT, RES>* epi,
+                 CUtensorMap* map_out, CUtensorMap* map_res) {
+  using Epi = DequantOut<OutT, RES>;
+  OutT* out = static_cast<OutT*>(args.out);
+  *epi = Epi{out, args.alpha, args.beta, static_cast<int>(M), static_cast<int>(N), args.relu, 0, 0,
+             args};
+  epi->vec = (N * static_cast<int64_t>(sizeof(OutT))) % 16 == 0 && aligned16(out);
+  if (epi->vec == 0) return true;
+  if constexpr (Epi::kCodes) {
+    if (!Epi::template staged<BN>()) return true;
+    if (Epi::kResidualBox && aligned16(args.res)) {
+      epi->res_box = 1;
+      if (!make_map(map_res, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, args.res, M, N, 64, BN)) return false;
+    }
+    return make_map(map_out, map_type(out), 1, out, M, N, 64, BN);
+  } else {
+    if (!Staging<BN, OutT>::kOn) return true;
+    return make_map(map_out, map_type(out), static_cast<int>(sizeof(OutT)), out, M, N, 64);
+  }
 }
 
-template <int BN, typename OutT>
-int launch_gemm_bn(const void* a, const void* bt, OutT* out, const float* alpha, const float* beta,
-                   int64_t M, int64_t N, int64_t K, int relu, cudaStream_t stream) {
-  CUtensorMap map_a, map_b, map_out = {};
-  DequantOut<OutT> epi{out, alpha, beta, static_cast<int>(M), static_cast<int>(N), relu, 0};
+template <int BN, typename OutT, bool RES>
+int launch_gemm_bn(const void* a, const void* bt, const EpiArgs& args, int64_t M, int64_t N, int64_t K,
+                   cudaStream_t stream) {
+  CUtensorMap map_a, map_b, map_out = {}, map_res = {};
+  DequantOut<OutT, RES> epi;
   if (!make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a, M, K, kBM) ||
       !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bt, N, K, BN) ||
-      !dequant_out<BN, OutT>(&epi, &map_out)) {
+      !dequant_out<BN>(args, M, N, &epi, &map_out, &map_res)) {
     return -1;
   }
-  return launch<Tile<BN>>(map_a, map_b, map_out, DenseA{}, epi, M, N, K, stream);
+  return launch<Tile<BN>>(map_a, map_b, map_out, map_res, DenseA{}, epi, M, N, K, stream);
 }
 
 // The GEMM route's launch.  Returns -1 for a shape it does not take (the
 // caller checks tma_describable first) or a failed set-up, else 0 (the caller
-// reads cudaGetLastError).
-template <typename OutT>
-int launch_int8_wgmma(const void* a, const void* bt, void* out, const void* alpha, const void* beta,
-                      int64_t M, int64_t N, int64_t K, int relu, cudaStream_t stream) {
+// reads cudaGetLastError).  Codes out or a residual in take 64-column tiles
+// whatever N (DequantOut::kColumnsFirst).
+template <typename OutT, bool RES>
+int launch_int8_wgmma(const void* a, const void* bt, const EpiArgs& args, int64_t M, int64_t N,
+                      int64_t K, cudaStream_t stream) {
   if (!tma_describable(a, bt, K) || M > 2147483647LL - kBM || N > 2147483647LL - 256 ||
       K > 2147483647LL - kBK) {
     return -1;
   }
-  OutT* o = static_cast<OutT*>(out);
-  const float* al = static_cast<const float*>(alpha);
-  const float* be = static_cast<const float*>(beta);
-  switch (pick_bn(N, K)) {
-    case 64:
-      return launch_gemm_bn<64, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
-    case 256:
-      return launch_gemm_bn<256, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
-    default:
-      return launch_gemm_bn<128, OutT>(a, bt, o, al, be, M, N, K, relu, stream);
+  if constexpr (DequantOut<OutT, RES>::kColumnsFirst) {
+    return launch_gemm_bn<64, OutT, RES>(a, bt, args, M, N, K, stream);
+  } else {
+    switch (pick_bn(N, K)) {
+      case 64:
+        return launch_gemm_bn<64, OutT, RES>(a, bt, args, M, N, K, stream);
+      case 256:
+        return launch_gemm_bn<256, OutT, RES>(a, bt, args, M, N, K, stream);
+      default:
+        return launch_gemm_bn<128, OutT, RES>(a, bt, args, M, N, K, stream);
+    }
   }
 }
 
@@ -841,51 +1085,49 @@ struct ConvRing<128, 64> : Ring<128, 4, 2, 64> {};
 template <>
 struct ConvRing<128, 128> : Ring<128, 2, 2, 128> {};
 
-template <int BN, int BK, typename OutT>
-int launch_conv_bn(const void* x, const void* w, OutT* out, const float* alpha, const float* bias,
-                   int n, int h, int wd, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw,
-                   int ho, int wo, int relu, cudaStream_t stream) {
+template <int BN, int BK, typename OutT, bool RES>
+int launch_conv_bn(const void* x, const void* w, const EpiArgs& args, int n, int h, int wd, int c,
+                   int o, int kh, int kw, int sh, int sw, int ph, int pw, int ho, int wo,
+                   cudaStream_t stream) {
   const int64_t M = static_cast<int64_t>(n) * ho * wo, K = static_cast<int64_t>(kh) * kw * c;
-  CUtensorMap map_a, map_b, map_out = {};
-  DequantOut<OutT> epi{out, alpha, bias, static_cast<int>(M), o, relu, 0};
+  CUtensorMap map_a, map_b, map_out = {}, map_res = {};
+  DequantOut<OutT, RES> epi;
   if (!make_im2col_map(&map_a, x, n, h, wd, c, kh, kw, sh, sw, ph, pw, BK) ||
       !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, o, K, BN, BK) ||
-      !dequant_out<BN, OutT>(&epi, &map_out)) {
+      !dequant_out<BN>(args, M, o, &epi, &map_out, &map_res)) {
     return -1;
   }
   const Im2colA loader{ho, wo, c, kw, sh, sw, ph, pw};
-  return launch<ConvRing<BN, BK>>(map_a, map_b, map_out, loader, epi, M, o, K, stream);
+  return launch<ConvRing<BN, BK>>(map_a, map_b, map_out, map_res, loader, epi, M, o, K, stream);
 }
 
 // The conv's TMA im2col route: out [n*ho*wo, o] row-major (NHWC).  Returns -1
 // for a shape it does not take (the caller checks im2col_describable first)
 // or a failed set-up, else 0 (the caller reads cudaGetLastError).
-template <typename OutT>
-int launch_int8_conv_wgmma(const void* x, const void* w, void* out, const void* alpha,
-                           const void* bias, int n, int h, int wd, int c, int o, int kh, int kw,
-                           int sh, int sw, int ph, int pw, int ho, int wo, int relu,
-                           cudaStream_t stream) {
+template <typename OutT, bool RES>
+int launch_int8_conv_wgmma(const void* x, const void* w, const EpiArgs& args, int n, int h, int wd,
+                           int c, int o, int kh, int kw, int sh, int sw, int ph, int pw, int ho,
+                           int wo, cudaStream_t stream) {
   if (!im2col_describable(x, w, c, 1, kh, kw, sh, sw, ph, pw) ||
       static_cast<int64_t>(n) * ho * wo > 2147483647LL - kBM ||
       static_cast<int64_t>(kh) * kw * c > 2147483647LL - kBK) {
     return -1;
   }
-  OutT* op = static_cast<OutT*>(out);
-  const float* al = static_cast<const float*>(alpha);
-  const float* be = static_cast<const float*>(bias);
   // K blocks of 128 bytes, or 64 where C is an odd multiple of 64; tiles
-  // 128 x 64 for O <= 64, else 128 x 128
+  // 128 x 64 for O <= 64 or codes out or a residual in, else 128 x 128
   const bool wide_k = c % 128 == 0;
-  if (o <= 64) {
-    return wide_k ? launch_conv_bn<64, 128, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
-                                                  pw, ho, wo, relu, stream)
-                  : launch_conv_bn<64, 64, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
-                                                 pw, ho, wo, relu, stream);
+  if constexpr (!DequantOut<OutT, RES>::kColumnsFirst) {
+    if (o > 64) {
+      return wide_k ? launch_conv_bn<128, 128, OutT, RES>(x, w, args, n, h, wd, c, o, kh, kw, sh,
+                                                          sw, ph, pw, ho, wo, stream)
+                    : launch_conv_bn<128, 64, OutT, RES>(x, w, args, n, h, wd, c, o, kh, kw, sh,
+                                                         sw, ph, pw, ho, wo, stream);
+    }
   }
-  return wide_k ? launch_conv_bn<128, 128, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
-                                                 pw, ho, wo, relu, stream)
-                : launch_conv_bn<128, 64, OutT>(x, w, op, al, be, n, h, wd, c, o, kh, kw, sh, sw, ph,
-                                                pw, ho, wo, relu, stream);
+  return wide_k ? launch_conv_bn<64, 128, OutT, RES>(x, w, args, n, h, wd, c, o, kh, kw, sh, sw, ph,
+                                                     pw, ho, wo, stream)
+                : launch_conv_bn<64, 64, OutT, RES>(x, w, args, n, h, wd, c, o, kh, kw, sh, sw, ph,
+                                                    pw, ho, wo, stream);
 }
 
 }  // namespace wg

@@ -37,9 +37,10 @@ from ..utils.spans import traced
 class QTensor(NamedTuple):
     """Pre-quantized activation: int8 codes + the float32 scale they encode.
 
-    The int8-resident serving path (ResNet blocks) quantizes a block input
-    once and feeds the codes to every consumer (conv1, downsample, residual
-    dequant), so only 1-byte codes travel between blocks."""
+    The int8-resident serving path (ResNet blocks) hands codes from kernel to
+    kernel: each conv's epilogue emits them at the next conv's frozen scale,
+    and a block's input codes feed conv1, the downsample and the last conv's
+    residual, so only 1-byte codes travel between convs."""
     codes: torch.Tensor   # int8, same layout as the float tensor it replaces
     scale: torch.Tensor   # float32 scalar
 
@@ -147,9 +148,10 @@ class QConv(nn.Module):
     """Conv2d with bias and a tapped output (Conv2dWithId analogue).
 
     ``out_codes=True`` marks convs whose output feeds only a residual add
-    (ResNet downsample convs): at serving time, when calibration froze an
-    output scale (``<site>:out``), the conv emits a ``QTensor`` so the
-    identity crosses device memory as 1-byte codes.
+    (ResNet downsample convs): calibration records their output statistics
+    (``<site>:out``), and at serving time the block asks them for codes at
+    that scale on the full int8 grid, so the identity crosses device memory
+    as 1-byte codes.
 
     A serving-prepared parameter tree replaces ``weight`` by int8 codes
     (OIHW, channels_last memory) and adds a ``w_scale`` entry that only such a
@@ -175,14 +177,16 @@ class QConv(nn.Module):
 
     @traced('layer.QConv')
     def forward(self, x, ctx: TapContext, residual=None, out_spec=None,
-                fuse_relu: bool = False):
-        """``residual``/``out_spec``/``fuse_relu`` are the packed-serving block
-        orchestration's inputs (models/resnet.py Bottleneck): ``residual`` is a
-        ``PackedQTensor`` added (dequantized) before the fused ReLU inside the
-        int4 GEMM's epilogue; ``out_spec = ('int8' | 'packed', scale)``
-        requantizes the output to codes at the NEXT consumer's frozen scale.
-        Outside the true-int serving path they raise: nothing there could
-        honour them."""
+                fuse_relu: bool = False, packed: bool = False):
+        """``residual``/``out_spec``/``fuse_relu`` are the serving blocks'
+        orchestration's inputs (models/resnet.py): ``residual`` is a
+        ``QTensor`` (a ``PackedQTensor`` with ``packed``) added, dequantized,
+        before the fused ReLU inside the kernel's epilogue; ``out_spec =
+        ('int8' | 'packed', scale)`` has the epilogue requantize the output to
+        codes at the NEXT consumer's frozen scale ('packed' only with
+        ``packed``).  ``packed`` runs a 1x1 conv as the int4 GEMM (W4A4 packed
+        serving).  Outside the true-int serving path they raise: nothing there
+        could honour them."""
         weight = self.weight
         # the s2d stem: prepare_serving_params(s2d_stem=True) stored the 7x7/2
         # stem kernel as an equivalent int8 [O, 12, 4, 4] stride-1 kernel
@@ -190,9 +194,9 @@ class QConv(nn.Module):
                     and tuple(weight.shape[1:]) == (12, 4, 4))
         if getattr(ctx, 'int8_serving', False) and (stem_s2d or not (
                 self.in_ch == 3 and getattr(ctx, 'bf16_first_conv', True))):
-            return _tap(ctx, self._serve(x, ctx, stem_s2d, residual, out_spec, fuse_relu),
+            return _tap(ctx, self._serve(x, ctx, stem_s2d, residual, out_spec, fuse_relu, packed),
                         self.site)
-        if residual is not None or out_spec is not None or fuse_relu:
+        if residual is not None or out_spec is not None or fuse_relu or packed:
             raise ValueError('residual/out_spec/fuse_relu need the true-int serving path '
                              '(a ServingInt8Context)')
         if isinstance(x, (QTensor, PackedQTensor)):  # safety: dequantize on the float path
@@ -213,27 +217,24 @@ class QConv(nn.Module):
         return _tap(ctx, _gather_out(ctx, y, self.features), self.site)
 
     def _serve(self, x, ctx, stem_s2d: bool, residual=None, out_spec=None,
-               fuse_relu: bool = False):
+               fuse_relu: bool = False, packed: bool = False):
         """True-int path: per-tensor (per-group for grouped convs) activation
         quantization, frozen if the context holds a scale for this site, and
-        per-channel int8 weights through the int8 kernels."""
+        per-channel int8 weights through the int8 kernels, whose epilogue adds
+        ``residual`` and emits ``out_spec``'s codes."""
         kernel_1x1 = tuple(self.weight.shape[2:]) == (1, 1)
-        if (getattr(ctx, 'packed', False) and kernel_1x1 and self.in_ch != 3
-                and self.groups == 1 and self.weight.dtype == torch.int8
-                and (out_spec is not None or residual is not None)):
-            # only when the block orchestrator drives this conv (Bottleneck
-            # passes out_spec/residual); a stray 1x1 conv in packed mode (a
-            # BasicBlock downsample) stays on the plain path
+        if (packed and kernel_1x1 and self.in_ch != 3 and self.groups == 1
+                and self.weight.dtype == torch.int8):
             return self._packed_gemm_1x1(x, ctx, residual, out_spec, fuse_relu)
-        # past the packed branch: fail loudly rather than drop a residual or a
-        # ReLU the packed orchestration handed over (packed mode on float
-        # params, for one)
-        if residual is not None or isinstance(x, PackedQTensor):
+        # past the packed branch: fail loudly rather than drop a packed
+        # residual or a ReLU the orchestration handed over (packed mode on
+        # float params, for one)
+        if isinstance(residual, PackedQTensor) or isinstance(x, PackedQTensor):
             raise ValueError('a packed residual or input needs the packed 1x1 GEMM path '
                              '(prepare_serving_params + scales frozen with packed=True)')
-        if fuse_relu and out_spec is None:
-            raise ValueError('fuse_relu without out_spec would be dropped outside the '
-                             'packed 1x1 GEMM path')
+        if fuse_relu and out_spec is None and residual is None:
+            raise ValueError('fuse_relu without out_spec or residual would be dropped '
+                             '(it needs the packed 1x1 GEMM path or a serving block)')
         prequant = isinstance(x, QTensor)
         if prequant:
             x, pre_scale = x.codes, x.scale
@@ -274,6 +275,26 @@ class QConv(nn.Module):
                     if getattr(ctx, 'calibrate', False):
                         ctx.record_input_stats(site_id, xf32,
                                                groups=self.groups if per_group else 1)
+        # the epilogue's codes: the next consumer's scale, on its input grid,
+        # or for a downsample's identity on the full int8 grid
+        out_scale = res = None
+        if out_spec is not None:
+            if out_spec[0] != 'int8':
+                raise ValueError(f'{out_spec[0]!r} codes need the packed 1x1 GEMM path')
+            out_scale = as_f32(out_spec[1], x.device)
+        if residual is not None:
+            res = (residual.codes, residual.scale)
+        own_scale = out_scale
+        if w_codes.shape[0] != self.features:
+            # a model-axis slice of the output channels (tensor parallelism):
+            # its slice of the residual and of a per-channel codes scale
+            own = self._own_channels(ctx, w_codes.shape[0])
+            if res is not None:
+                res = (res[0][:, own], res[1])
+            if out_scale is not None and out_scale.ndim:
+                own_scale = out_scale[own]
+        epilogue = dict(fuse_relu=fuse_relu, out_dtype=self.dtype, out_scale=own_scale,
+                        out_bits=8 if self.out_codes else act_bits, residual=res)
         if stem_s2d:
             if self.strides != (2, 2) or self.padding != (3, 3):
                 raise ValueError(f's2d stem kernel requires the 7x7/2 pad-3 stem, got '
@@ -284,36 +305,26 @@ class QConv(nn.Module):
             codes = int_matmul.quantize_sym_codes(x, act_scale)
             y = int_conv.int8_conv(s2d_stem_input(codes), w_codes, w_scale, self.bias,
                                    strides=(1, 1), padding=(0, 0), act_bits=8,
-                                   act_scale=act_scale, fuse_relu=fuse_relu,
-                                   out_dtype=self.dtype)
+                                   act_scale=act_scale, **epilogue)
         else:
-            # with an out_spec the ReLU ahead of the requant runs in the conv
-            # kernel's epilogue (max(., 0) gives the same values either way)
             y = int_conv.int8_conv(x if prequant else x.float(), w_codes, w_scale, self.bias,
                                    strides=self.strides, padding=self.padding,
                                    groups=self.groups, act_bits=act_bits, act_scale=act_scale,
-                                   fuse_relu=fuse_relu, out_dtype=self.dtype)
+                                   **epilogue)
         y = _gather_out(ctx, y, self.features)
-        if out_spec is not None:
-            # packed-serving orchestration (Bottleneck conv2): requantize the
-            # int8 conv's output to codes at the NEXT consumer's frozen scale;
-            # elementwise, outside any kernel as in the JAX package
-            mode, oscale = out_spec[0], as_f32(out_spec[1], y.device)
-            codes = int_matmul.quantize_sym_codes(y, oscale, act_bits)
-            if mode == 'packed':
-                packed = int4_matmul.pack_int4(codes.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-                return PackedQTensor(packed, oscale)
-            return QTensor(codes, oscale)
-        if self.out_codes and site_id is not None:
-            out_scale = getattr(ctx, 'act_scales', {}).get(site_id + ':out')
-            if out_scale is None and getattr(ctx, 'calibrate', False):
-                ctx.record_input_stats(site_id + ':out', y.float())
-            elif out_scale is not None:
-                # the identity crosses device memory as codes on the full int8
-                # grid whatever act_bits is (they are only dequantized for the
-                # residual add, never fed to an int conv)
-                y = QTensor(int_matmul.quantize_sym_codes(y, out_scale), out_scale)
+        if out_scale is not None:
+            return QTensor(y, out_scale)
+        if self.out_codes and site_id is not None and getattr(ctx, 'calibrate', False):
+            ctx.record_input_stats(site_id + ':out', y.float())
         return y
+
+    @staticmethod
+    def _own_channels(ctx, held: int) -> slice:
+        """The output channels of a weight that holds ``held`` of them: the
+        slice at this rank's index in the model group (``shard_params``)."""
+        import torch.distributed as dist
+        start = dist.get_rank(ctx.model_group) * held
+        return slice(start, start + held)
 
     def _packed_gemm_1x1(self, x, ctx, residual, out_spec, fuse_relu: bool):
         """Packed-serving 1x1 conv == the int4 GEMM: packed (or plain int8)

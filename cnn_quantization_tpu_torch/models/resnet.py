@@ -23,23 +23,39 @@ from .layers import (PackedQTensor, QAvgPool, QBatchNorm, QConv, QLinear, QMaxPo
                      SiteNamer, relu, run_all)
 
 
-def _dequant_identity(identity, dtype):
-    """The residual identity may arrive as int8 codes (downsample out-codes
-    or the block's shared input codes); dequantize it for the add."""
-    if isinstance(identity, QTensor):
-        return identity.dequant(dtype)
-    return identity
+def _codes_scales(spec, ctx):
+    """The frozen scales a block's int8-resident serving path reads: each
+    conv's input scale, then the downsample's identity scale
+    (``<site>:out``).  None off the true-int path, with BN live, or where one
+    is absent (calibration, dynamic serving): the block then runs on floats."""
+    if not getattr(ctx, 'int8_serving', False) or not spec.fold_bn:
+        return None
+    scales = getattr(ctx, 'act_scales', {})
+    keys = [site.id for site, _ in spec.conv_sites]
+    if spec.has_downsample:
+        keys.append(spec.ds_sites[0].id + ':out')
+    if not all(k in scales for k in keys):
+        return None
+    return [scales[k] for k in keys]
+
+
+def _block_input(x, scale, ctx):
+    """The block input as codes at conv1's frozen scale: codes the previous
+    kernel emitted there, or the float input quantized once."""
+    if isinstance(x, QTensor):
+        return x
+    return QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
 
 
 def _serving_block_input(x, ctx, conv1_site):
-    """Int8-resident serving: quantize the block input ONCE at conv1's frozen
-    scale and hand the codes to every consumer (conv1, downsample, residual
-    dequant), so only 1-byte codes travel between blocks.
-
-    Returns (x_in, identity): the conv input (QTensor or raw) and the residual
-    tensor.  Not serving, or no frozen scale (dynamic serving keeps per-conv
-    abs-max): the plain path."""
-    if not getattr(ctx, 'int8_serving', False) or isinstance(x, QTensor):
+    """A block off the int8-resident path (BN live, or a scale it needs
+    absent) takes floats: serving with conv1's scale frozen, it quantizes its
+    input ONCE and hands the codes to conv1 and the downsample, and the
+    identity is their dequantized values (the JAX package's int8-resident
+    flow, elementwise).  Returns (x_in, identity)."""
+    if isinstance(x, (QTensor, PackedQTensor)):
+        raise RuntimeError('a block off the int8-resident path was handed codes')
+    if not getattr(ctx, 'int8_serving', False):
         return x, x
     scale = getattr(ctx, 'act_scales', {}).get(conv1_site.id)
     if scale is None:
@@ -95,7 +111,20 @@ class BasicBlock(nn.Module):
             self.downsample = _downsample(s)
 
     @traced('layer.BasicBlock')
-    def forward(self, x, ctx: TapContext):
+    def forward(self, x, ctx: TapContext, out_scale=None):
+        """``out_scale``: the next block's input scale when it takes codes
+        (``ResNet.forward``), or None for a float output."""
+        scales = _codes_scales(self.spec, ctx)
+        if scales is not None:
+            # int8-resident serving: conv1 emits codes at conv2's scale, and
+            # conv2 adds the identity codes and emits the next block's input
+            q = _block_input(x, scales[0], ctx)
+            out = self.conv1(q, ctx, fuse_relu=True, out_spec=('int8', scales[1]))
+            identity = q
+            if self.spec.has_downsample:
+                identity = self.downsample[0](q, ctx, out_spec=('int8', scales[2]))
+            return self.conv2(out, ctx, residual=identity, fuse_relu=True,
+                              out_spec=None if out_scale is None else ('int8', out_scale))
         fold = self.spec.fold_bn
         x, identity = _serving_block_input(x, ctx, self.spec.conv_sites[0][0])
         out = self.conv1(x, ctx)
@@ -106,7 +135,7 @@ class BasicBlock(nn.Module):
             out = self.bn2(out, ctx)
         if self.spec.has_downsample:
             identity = run_all(self.downsample, x, ctx)
-        return relu(out + _dequant_identity(identity, self.spec.dtype))
+        return relu(out + identity)
 
 
 class Bottleneck(nn.Module):
@@ -130,10 +159,12 @@ class Bottleneck(nn.Module):
             self.downsample = _downsample(s)
 
     @traced('layer.Bottleneck')
-    def forward(self, x, ctx: TapContext, out_spec=False):
-        """``out_spec``: False = the plain path; in packed serving ``ResNet``
-        passes ('packed' | 'int8', the next block's input scale), or None for
-        the last block (float out)."""
+    def forward(self, x, ctx: TapContext, out_spec=False, out_scale=None):
+        """``out_spec``: in a packed stage ``ResNet`` passes ('packed' |
+        'int8', the next block's input scale), or None for the last block
+        (float out); False elsewhere.  ``out_scale``: off packed stages, the
+        next block's input scale when it takes codes, or None for a float
+        output."""
         fold = self.spec.fold_bn
         if out_spec is not False and getattr(ctx, 'packed', False):
             # W4A4 packed serving (orchestrated by ResNet.forward): conv1,
@@ -143,14 +174,28 @@ class Bottleneck(nn.Module):
             # between convs is int8 codes, every block boundary 4-bit packed.
             scales = ctx.act_scales
             (c1, _), (c2, _), (c3, _) = self.spec.conv_sites
-            out = self.conv1(x, ctx, fuse_relu=True, out_spec=('int8', scales[c2.id]))
+            out = self.conv1(x, ctx, fuse_relu=True, out_spec=('int8', scales[c2.id]),
+                             packed=True)
             out = self.conv2(out, ctx, fuse_relu=True, out_spec=('int8', scales[c3.id]))
             identity = x   # packed codes from the previous block
             if self.spec.has_downsample:
                 dc = self.spec.ds_sites[0]
                 identity = self.downsample[0](
-                    x, ctx, out_spec=('packed', scales[dc.id + ':out:packed']))
-            return self.conv3(out, ctx, residual=identity, fuse_relu=True, out_spec=out_spec)
+                    x, ctx, out_spec=('packed', scales[dc.id + ':out:packed']), packed=True)
+            return self.conv3(out, ctx, residual=identity, fuse_relu=True, out_spec=out_spec,
+                              packed=True)
+        scales = _codes_scales(self.spec, ctx)
+        if scales is not None:
+            # int8-resident serving: the same hand-overs in int8 codes through
+            # the int8 kernels' epilogues; conv3 adds the identity codes
+            q = _block_input(x, scales[0], ctx)
+            out = self.conv1(q, ctx, fuse_relu=True, out_spec=('int8', scales[1]))
+            out = self.conv2(out, ctx, fuse_relu=True, out_spec=('int8', scales[2]))
+            identity = q
+            if self.spec.has_downsample:
+                identity = self.downsample[0](q, ctx, out_spec=('int8', scales[3]))
+            return self.conv3(out, ctx, residual=identity, fuse_relu=True,
+                              out_spec=None if out_scale is None else ('int8', out_scale))
         x, identity = _serving_block_input(x, ctx, self.spec.conv_sites[0][0])
         out = self.conv1(x, ctx)
         if not fold:
@@ -163,7 +208,7 @@ class Bottleneck(nn.Module):
             out = self.bn3(out, ctx)
         if self.spec.has_downsample:
             identity = run_all(self.downsample, x, ctx)
-        return relu(out + _dequant_identity(identity, self.spec.dtype))
+        return relu(out + identity)
 
 
 class ResNet(nn.Module):
@@ -179,7 +224,6 @@ class ResNet(nn.Module):
         self.maxpool = QMaxPool(3, 2, 1, site=mp_site)
         self.stages = len(stage_specs)
         self.stage_specs = stage_specs
-        self.first_block_site = stage_specs[0][0].conv_sites[0][0]
         for li, stage in enumerate(stage_specs):
             block = Bottleneck if stage[0].bottleneck else BasicBlock
             setattr(self, f'layer{li + 1}', nn.ModuleList(block(sp) for sp in stage))
@@ -193,33 +237,43 @@ class ResNet(nn.Module):
         if not self.fold_bn:
             x = self.bn1(x, ctx)
         x = relu(x)
-        if getattr(ctx, 'int8_serving', False) and self.fold_bn:
-            # serving: quantize the stem output at the first block conv's
-            # frozen input scale and max-pool on int8 codes (max commutes
-            # with dequant), so the 112x112 stem tensor is pooled at 1 byte
-            scale = getattr(ctx, 'act_scales', {}).get(self.first_block_site.id)
-            if scale is not None:
-                x = QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
-        x = self.maxpool(x, ctx)
         pk_stages = self._packed_stages(ctx)
         # (1-based stage, block module) along the trunk
         trunk = [(li + 1, blk) for li in range(self.stages)
                  for blk in getattr(self, f'layer{li + 1}')]
+
+        def codes_in(i):
+            """The scale block i takes int8 codes at, or None for floats."""
+            stage, blk = trunk[i]
+            if stage in pk_stages:
+                return ctx.act_scales[blk.spec.conv_sites[0][0].id]
+            scales = _codes_scales(blk.spec, ctx)
+            return None if scales is None else scales[0]
+
+        scale = codes_in(0) if trunk else None
+        if scale is not None:
+            # serving: quantize the stem output at the first block conv's
+            # frozen input scale and max-pool on int8 codes (max commutes
+            # with dequant), so the 112x112 stem tensor is pooled at 1 byte
+            x = QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
+        x = self.maxpool(x, ctx)
         for i, (stage, blk) in enumerate(trunk):
+            last = i + 1 == len(trunk)
             if stage not in pk_stages:
-                # a packed -> plain stage boundary arrives as int8 codes
-                # (out_spec 'int8' below), never as a PackedQTensor
+                # a packed -> plain boundary arrives as int8 codes (out_spec
+                # 'int8' below), never as a PackedQTensor; a plain -> packed
+                # one leaves as floats, which the packed block's conv1 and
+                # downsample quantize each at its own scale
                 if isinstance(x, PackedQTensor):
                     raise RuntimeError('a plain block was handed packed codes')
-                x = blk(x, ctx)
+                plain_next = not last and trunk[i + 1][0] not in pk_stages
+                x = blk(x, ctx, out_scale=codes_in(i + 1) if plain_next else None)
                 continue
             out_spec = None   # the last block: float out to the avgpool
-            if i + 1 < len(trunk):
-                nxt_stage, nxt = trunk[i + 1]
+            if not last and (scale := codes_in(i + 1)) is not None:
                 # into a packed block the boundary crosses device memory 4-bit
                 # packed; into a plain block as int8 codes (its QTensor input)
-                out_spec = ('packed' if nxt_stage in pk_stages else 'int8',
-                            ctx.act_scales[nxt.spec.conv_sites[0][0].id])
+                out_spec = ('packed' if trunk[i + 1][0] in pk_stages else 'int8', scale)
             x = blk(x, ctx, out_spec=out_spec)
         x = self.avgpool(x, ctx)
         if x.shape[2:] != (1, 1):

@@ -38,15 +38,24 @@ lowering, :126-154) writes the patches to device memory and multiplies them
 with the int8 GEMM kernel; it computes what ``int8_conv`` computes, bit for
 bit, and is kept as a cross-check of the implicit-GEMM kernel.
 
+The tensor-core routes' epilogue can also take a residual in and hand codes
+out, as the GEMM's (``int_matmul.fused_epilogue``); the depthwise kernel has
+neither, so there ``int8_conv_dequant`` writes floats and composes them with
+``int_matmul.requant_epilogue``.
+
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
 they launch the kernels or raise.  ``int8_conv_dequant.launches`` counts
 launches of the conv kernel, and nothing else; ``launches_depthwise``,
-``launches_im2col_wgmma`` and ``launches_implicit_gemm`` count them by route.
+``launches_im2col_wgmma`` and ``launches_implicit_gemm`` count them by route;
+``FEATURE_CALLS.codes_out`` and ``.residual_in`` count the calls of
+``int8_conv_dequant``, on either device, whose epilogue emits codes or adds a
+residual.
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +65,8 @@ from . import build, int_matmul
 from .int_matmul import quantize_sym_codes, quantize_sym_int8
 
 _lib = None
+# as int_matmul.FEATURE_CALLS, for the conv wrapper
+FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0)
 
 
 def _library():
@@ -64,7 +75,7 @@ def _library():
         path, _ = build.build_library('int8_conv')
         lib = ctypes.CDLL(str(path))
         c_ptr, c_int = ctypes.c_void_p, ctypes.c_int
-        lib.cnnq_int8_conv.argtypes = [c_ptr] * 5 + [c_int] * 15 + [c_ptr]
+        lib.cnnq_int8_conv.argtypes = [c_ptr] * 8 + [c_int] * 15 + [ctypes.c_float, c_int, c_ptr]
         lib.cnnq_int8_conv.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -132,11 +143,12 @@ def _check_conv(x_q, w_codes, strides, padding, groups):
 
 
 def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_dtype,
-           route=None):
+           route=None, out_scale=None, out_bits=8, residual=None):
     """One launch of the CUDA kernel on ``x_q``'s current stream; returns the
     NCHW output in channels_last memory.  ``route`` None takes
     ``conv_route``'s; ``'implicit_gemm'``, which computes every shape, may be
-    asked for to measure it beside that route."""
+    asked for to measure it beside that route.  The depthwise route takes no
+    ``out_scale`` or ``residual``."""
     if x_q.device.type != 'cuda' or w_codes.device != x_q.device:
         raise ValueError(f'int8 conv kernel needs CUDA tensors on one device, got '
                          f'{x_q.device} and {w_codes.device}')
@@ -152,18 +164,29 @@ def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_d
     ho, wo = (h + 2 * ph - kh) // sh + 1, (wd + 2 * pw - kw) // sw + 1
     alpha = int_matmul.column_vector(alpha, o, x.device)
     bias = None if bias is None else int_matmul.column_vector(bias, o, x.device)
-    out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=x.device)
+    osc, os_vec = int_matmul.out_scale_arg(out_scale, o, x.device)
+    res = rs = None
+    if residual is not None:
+        res, rs = int_matmul.residual_arg(residual, x.device)
+        if tuple(res.shape) != (n, o, ho, wo):
+            raise ValueError(f'residual {tuple(res.shape)} for an output of {(n, o, ho, wo)}')
+        res = res.permute(0, 2, 3, 1).contiguous()   # out's NHWC layout
+    out = torch.empty((n, ho, wo, o), dtype=out_dtype if osc is None else torch.int8,
+                      device=x.device)
     own = conv_route(c, o, groups, kernel=(kh, kw), strides=(sh, sw), padding=(ph, pw),
                      aligned=x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     route = own if route is None else route
     if route not in (own, 'implicit_gemm'):
         raise ValueError(f'the {route} route cannot take this conv; its route is {own}')
+    if route == 'depthwise' and (osc is not None or res is not None):
+        raise ValueError('the depthwise route writes floats: no out_scale or residual')
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _library().cnnq_int8_conv(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), alpha.data_ptr(),
-            None if bias is None else bias.data_ptr(), n, h, wd, c, o, kh, kw, sh, sw, ph, pw,
-            groups, int(fuse_relu), code, _ROUTE_CODES[route], stream)
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), alpha.data_ptr(), ptr(bias), ptr(osc),
+            ptr(res), ptr(rs), n, h, wd, c, o, kh, kw, sh, sw, ph, pw, groups, int(fuse_relu),
+            code, os_vec, int_matmul.qmax_of(out_bits), _ROUTE_CODES[route], stream)
     if rc != 0:
         raise RuntimeError(f'int8 conv kernel launch failed ({route} route): CUDA error {rc}')
     int8_conv_dequant.launches += 1
@@ -173,17 +196,31 @@ def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_d
 
 
 def int8_conv_dequant(x_q, w_codes, alpha, bias=None, *, strides=(1, 1), padding=(0, 0),
-                      groups: int = 1, fuse_relu: bool = False, out_dtype=torch.float32):
+                      groups: int = 1, fuse_relu: bool = False, out_dtype=torch.float32,
+                      out_scale=None, out_bits: int = 8, residual=None):
     """int8 codes in, dequantized activations out: ``x_q`` [N, C, H, W] int8,
     ``w_codes`` [O, C/groups, KH, KW] int8, ``alpha``/``bias`` [O] float32 ->
     ``conv(x_q, w_codes) * alpha + bias`` with int32 accumulation, an
-    optional ReLU, then the cast to ``out_dtype``."""
+    optional ReLU, then the cast to ``out_dtype``.  ``residual`` and
+    ``out_scale``/``out_bits`` as ``int_matmul.int8_matmul_dequant``'s, the
+    residual's codes [N, O, Ho, Wo]."""
     strides, padding = tuple(strides), tuple(padding)
     if x_q.device.type == 'cpu':
+        int_matmul.count_features(FEATURE_CALLS, out_scale, residual)
         return int8_conv_dequant_plain(x_q, w_codes, alpha, bias, strides=strides,
                                        padding=padding, groups=groups, fuse_relu=fuse_relu,
-                                       out_dtype=out_dtype)
-    return launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_dtype)
+                                       out_dtype=out_dtype, out_scale=out_scale,
+                                       out_bits=out_bits, residual=residual)
+    if groups == x_q.shape[1] == w_codes.shape[0] and (out_scale is not None
+                                                       or residual is not None):
+        # the depthwise kernel writes floats: the rest of the epilogue in PyTorch
+        y = launch(x_q, w_codes, alpha, bias, strides, padding, groups,
+                   fuse_relu and residual is None, out_dtype)
+        return int_matmul.requant_epilogue(y, fuse_relu, out_scale, out_bits, residual,
+                                           shape=(1, -1, 1, 1))
+    int_matmul.count_features(FEATURE_CALLS, out_scale, residual)
+    return launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_dtype,
+                  out_scale=out_scale, out_bits=out_bits, residual=residual)
 
 
 int8_conv_dequant.launches = 0
@@ -211,7 +248,8 @@ def int_conv_exact(x_q, w_codes, strides, padding, groups) -> torch.Tensor:
 
 def int8_conv_dequant_plain(x_q, w_codes, alpha, bias=None, *, strides=(1, 1),
                             padding=(0, 0), groups: int = 1, fuse_relu: bool = False,
-                            out_dtype=torch.float32):
+                            out_dtype=torch.float32, out_scale=None, out_bits: int = 8,
+                            residual=None):
     """The plain PyTorch version of ``int8_conv_dequant``."""
     strides, padding = tuple(strides), tuple(padding)
     _check_conv(x_q, w_codes, strides, padding, groups)
@@ -220,19 +258,22 @@ def int8_conv_dequant_plain(x_q, w_codes, alpha, bias=None, *, strides=(1, 1),
     alpha = int_matmul.column_vector(alpha, o, x_q.device)
     bias = None if bias is None else int_matmul.column_vector(bias, o, x_q.device)
     acc = int_conv_exact(x_q, w_codes, strides, padding, groups)
-    return int_matmul.dequant_epilogue(acc, alpha, bias, fuse_relu, out_dtype,
-                                       shape=(1, -1, 1, 1))
+    return int_matmul.fused_epilogue(acc, alpha, bias, fuse_relu, out_dtype, out_scale=out_scale,
+                                     out_bits=out_bits, residual=residual, shape=(1, -1, 1, 1))
 
 
 def int8_conv(x, w_codes, w_scale, bias=None, *, kernel_size=None, strides=(1, 1),
               padding=(0, 0), groups: int = 1, act_bits: int = 8, act_scale=None,
-              fuse_relu: bool = False, out_dtype=torch.float32, interpret=None):
+              fuse_relu: bool = False, out_dtype=torch.float32, interpret=None,
+              out_scale=None, out_bits: int = 8, residual=None):
     """Quantize ``x`` (NCHW float, or int8 codes with ``act_scale`` their
     scale), convolve in int8, dequantize.  ``w_codes`` [O, I, KH, KW] int8 and
     ``w_scale`` [O] come from ``prepare_int8_weights``.  ``act_scale`` is a
     scalar or an ``[in_ch]`` vector constant within each group.
-    ``kernel_size``/``interpret`` are accepted for the JAX signature (the
-    shape comes from ``w_codes``)."""
+    ``residual=(codes, scale)`` ([N, O, Ho, Wo] int8 codes) is added before the
+    ReLU, and with ``out_scale`` the output is int8 codes on the ``out_bits``
+    grid (``int8_conv_dequant``).  ``kernel_size``/``interpret`` are accepted
+    for the JAX signature (the shape comes from ``w_codes``)."""
     del kernel_size, interpret
     strides, padding = tuple(strides), tuple(padding)
     x_q, x_scale = _quantize_act(x, act_bits, act_scale)
@@ -246,14 +287,19 @@ def int8_conv(x, w_codes, w_scale, bias=None, *, kernel_size=None, strides=(1, 1
     else:
         x_scale_out = x_scale
     alpha = x_scale_out * w_scale.float()
+    epilogue = dict(fuse_relu=fuse_relu, out_dtype=out_dtype, out_scale=out_scale,
+                    out_bits=out_bits)
     if (kh, kw) == (1, 1) and strides == (1, 1) and padding == (0, 0) and groups == 1:
         n, c, h, w = x_q.shape
         a = x_q.permute(0, 2, 3, 1).reshape(n * h * w, c)
+        res = None
+        if residual is not None:
+            res = (residual[0].permute(0, 2, 3, 1).reshape(n * h * w, features), residual[1])
         out = int_matmul.int8_matmul_dequant(a, w_codes.reshape(features, c).t(), alpha, bias,
-                                             fuse_relu=fuse_relu, out_dtype=out_dtype)
+                                             residual=res, **epilogue)
         return out.view(n, h, w, features).permute(0, 3, 1, 2)
     return int8_conv_dequant(x_q, w_codes, alpha, bias, strides=strides, padding=padding,
-                             groups=groups, fuse_relu=fuse_relu, out_dtype=out_dtype)
+                             groups=groups, residual=residual, **epilogue)
 
 
 def _extract_patches(x_q, kh: int, kw: int, strides, padding) -> torch.Tensor:

@@ -10,6 +10,12 @@ int_matmul.py`` (``int8_matmul_dequant`` :58-101, body ``_matmul_kernel``
     out[m, n] = C[m, n] * alpha[n] + beta[n]       (float32, then optional
                                                     ReLU, then the cast)
 
+The epilogue can also take a residual in (int8 codes in the output's layout
+and their scale, added before the ReLU) and hand codes out (the value's int8
+codes at the next layer's frozen scale, ``quantize_sym_codes`` fused), so a
+serving block passes codes from kernel to kernel; ``fused_epilogue`` is the
+plain composition both kernels are held to.
+
 The kernel is ``csrc/int8_gemm.cu``, built with nvcc for sm_90a at first use
 and bound with ctypes.  On the true-int8 serving path it carries every 1x1
 stride-1 convolution and the classifier.  What bounds it depends on the shape:
@@ -35,12 +41,14 @@ alignment, never by error (a failure on either raises):
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors it
 launches the kernel or raises.  ``int8_matmul_dequant.launches`` counts kernel
 launches, and nothing else; ``launches_wgmma`` and ``launches_mma_sync`` count
-them by route.
+them by route; ``FEATURE_CALLS.codes_out`` and ``.residual_in`` count the
+calls, on either device, whose epilogue emits codes or adds a residual.
 """
 
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -49,6 +57,9 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+# the wrapper's calls whose epilogue emits codes or adds a residual; kept off
+# the wrapper, which instrumentation replaces with a function that calls it
+FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0)
 
 
 def _library():
@@ -57,8 +68,9 @@ def _library():
         path, _ = build.build_library('int8_gemm')
         lib = ctypes.CDLL(str(path))
         c_ptr, c_i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.cnnq_int8_gemm.argtypes = [c_ptr, c_ptr, c_ptr, c_ptr, c_ptr, c_i64, c_i64, c_i64,
-                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, c_ptr]
+        c_int = ctypes.c_int
+        lib.cnnq_int8_gemm.argtypes = [c_ptr] * 8 + [c_i64] * 3 + [c_int] * 3 + [
+            ctypes.c_float, c_int, c_ptr]
         lib.cnnq_int8_gemm.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -78,6 +90,43 @@ def check_out_dtype(out_dtype):
     return _DTYPES[out_dtype]
 
 
+def out_scale_arg(out_scale, n: int, device):
+    """The codes' scale as the kernels read it: (None, 0) for a float
+    output, else (a float32 scalar, 0) or (a contiguous ``[n]``, 1), one for
+    each output column."""
+    if out_scale is None:
+        return None, 0
+    s = as_f32(out_scale, device)
+    if s.numel() == 1:
+        return s.reshape(()), 0
+    if s.numel() != n:
+        raise ValueError(f'expected 1 or {n} output scales, got {s.numel()}')
+    return s.reshape(-1).contiguous(), 1
+
+
+def residual_arg(residual, device):
+    """``(codes, scale)``: int8 codes and one float32 scale on ``device``."""
+    codes, scale = residual
+    if codes.dtype != torch.int8 or codes.device != device:
+        raise ValueError(f'a residual is int8 codes on {device}, got {codes.dtype} on '
+                         f'{codes.device}')
+    s = as_f32(scale, device)
+    if s.numel() != 1:
+        raise ValueError(f'a residual takes one scale, got shape {tuple(s.shape)}')
+    return codes, s.reshape(())
+
+
+def qmax_of(bits: int) -> float:
+    return 2.0 ** (bits - 1) - 1.0
+
+
+def count_features(calls, out_scale, residual):
+    """Counts in ``calls`` a call whose epilogue emits codes or adds a
+    residual."""
+    calls.codes_out += out_scale is not None
+    calls.residual_in += residual is not None
+
+
 def gemm_route(k: int, aligned: bool = True) -> str:
     """The kernel route of an int8 GEMM with depth ``k``: ``'wgmma'`` where TMA
     can describe both K-major operands (every row stride a multiple of 16
@@ -93,7 +142,8 @@ def _check_operands(a_q, b_q):
         raise ValueError(f'cannot multiply {tuple(a_q.shape)} by {tuple(b_q.shape)}')
 
 
-def launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype):
+def launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype, out_scale=None, out_bits=8,
+           residual=None):
     """One launch of the CUDA kernel on ``a_q``'s current stream."""
     if a_q.device.type != 'cuda' or b_q.device != a_q.device:
         raise ValueError(f'int8 GEMM kernel needs CUDA tensors on one device, got '
@@ -105,13 +155,21 @@ def launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype):
     bt = b_q.t().contiguous()  # no copy for a transposed view of an [N, K] weight
     alpha = column_vector(alpha, n, a.device)
     beta = None if beta is None else column_vector(beta, n, a.device)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    osc, os_vec = out_scale_arg(out_scale, n, a.device)
+    res = rs = None
+    if residual is not None:
+        res, rs = residual_arg(residual, a.device)
+        if tuple(res.shape) != (m, n):
+            raise ValueError(f'residual {tuple(res.shape)} for an output of {(m, n)}')
+        res = res.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype if osc is None else torch.int8, device=a.device)
     route = gemm_route(k, a.data_ptr() % 16 == 0 and bt.data_ptr() % 16 == 0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _library().cnnq_int8_gemm(
-            a.data_ptr(), bt.data_ptr(), out.data_ptr(), alpha.data_ptr(),
-            None if beta is None else beta.data_ptr(), m, n, k, int(fuse_relu), code,
+            a.data_ptr(), bt.data_ptr(), out.data_ptr(), alpha.data_ptr(), ptr(beta), ptr(osc),
+            ptr(res), ptr(rs), m, n, k, int(fuse_relu), code, os_vec, qmax_of(out_bits),
             int(route == 'wgmma'), stream)
     if rc != 0:
         raise RuntimeError(f'int8 GEMM kernel launch failed ({route} route): CUDA error {rc}')
@@ -124,15 +182,22 @@ def launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype):
 
 
 def int8_matmul_dequant(a_q, b_q, alpha, beta=None, *, fuse_relu: bool = False,
-                        out_dtype=torch.float32):
+                        out_dtype=torch.float32, out_scale=None, out_bits: int = 8,
+                        residual=None):
     """``a_q`` [M, K] int8, ``b_q`` [K, N] int8, ``alpha``/``beta`` [N] float32
     -> [M, N]: ``out = (a_q @ b_q) * alpha + beta`` with int32 accumulation,
     an optional ReLU, then the cast to ``out_dtype`` (float32 or bfloat16).
-    ``beta=None`` adds nothing."""
+    ``beta=None`` adds nothing.  ``residual=(codes, scale)``, [M, N] int8 codes
+    and their scale, is added before the ReLU; with ``out_scale`` (one value,
+    or one a column) the output is the int8 codes of that value on the
+    ``out_bits`` grid, and ``out_dtype`` the type the value travels in
+    (``fused_epilogue``)."""
+    count_features(FEATURE_CALLS, out_scale, residual)
     if a_q.device.type == 'cpu':
         return int8_matmul_dequant_plain(a_q, b_q, alpha, beta, fuse_relu=fuse_relu,
-                                         out_dtype=out_dtype)
-    return launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype)
+                                         out_dtype=out_dtype, out_scale=out_scale,
+                                         out_bits=out_bits, residual=residual)
+    return launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype, out_scale, out_bits, residual)
 
 
 int8_matmul_dequant.launches = 0
@@ -162,15 +227,47 @@ def dequant_epilogue(acc, alpha, beta, fuse_relu: bool, out_dtype, shape=(1, -1)
     return out.to(out_dtype)
 
 
+def fused_epilogue(acc, alpha, beta, fuse_relu: bool, out_dtype, *, out_scale=None,
+                   out_bits: int = 8, residual=None, shape=(1, -1)):
+    """The int8 kernels' whole epilogue in plain PyTorch, as the serving path
+    ran it before it was fused: ``dequant_epilogue``; with ``residual=(codes,
+    scale)``, + the codes dequantized in ``out_dtype`` and then the ReLU; with
+    ``out_scale``, the result's codes (``quantize_sym_codes``)."""
+    if residual is None:
+        return requant_epilogue(dequant_epilogue(acc, alpha, beta, fuse_relu, out_dtype, shape),
+                                False, out_scale, out_bits, None, shape)
+    return requant_epilogue(dequant_epilogue(acc, alpha, beta, False, out_dtype, shape),
+                            fuse_relu, out_scale, out_bits, residual, shape)
+
+
+def requant_epilogue(y, fuse_relu: bool, out_scale=None, out_bits: int = 8, residual=None,
+                     shape=(1, -1)):
+    """What the epilogue does past the float value ``y``: + the residual's
+    codes dequantized in ``y``'s type, the ReLU (``fuse_relu``, applied only
+    with a residual: without one ``y`` carries it), then the codes at
+    ``out_scale`` (one value, or one a column viewed as ``shape``)."""
+    if residual is not None:
+        codes, scale = residual
+        y = y + (codes.float() * as_f32(scale, y.device)).to(y.dtype)
+        if fuse_relu:
+            y = torch.relu(y)
+    if out_scale is None:
+        return y
+    s = as_f32(out_scale, y.device)
+    return quantize_sym_codes(y, s.view(shape) if s.numel() > 1 else s.reshape(()), out_bits)
+
+
 def int8_matmul_dequant_plain(a_q, b_q, alpha, beta=None, *, fuse_relu: bool = False,
-                              out_dtype=torch.float32):
+                              out_dtype=torch.float32, out_scale=None, out_bits: int = 8,
+                              residual=None):
     """The plain PyTorch version of ``int8_matmul_dequant``."""
     _check_operands(a_q, b_q)
     check_out_dtype(out_dtype)
     n = b_q.shape[1]
     alpha = column_vector(alpha, n, a_q.device)
     beta = None if beta is None else column_vector(beta, n, a_q.device)
-    return dequant_epilogue(int_matmul_exact(a_q, b_q), alpha, beta, fuse_relu, out_dtype)
+    return fused_epilogue(int_matmul_exact(a_q, b_q), alpha, beta, fuse_relu, out_dtype,
+                          out_scale=out_scale, out_bits=out_bits, residual=residual)
 
 
 def abs_max_scale(amax, bits: int) -> torch.Tensor:
@@ -184,7 +281,7 @@ def quantize_sym_codes(x, scale, bits: int = 8) -> torch.Tensor:
     """int8 codes of ``x`` on the symmetric grid ``scale * [-qmax, qmax]``,
     qmax = 2^(bits-1) - 1, rounding half to even.  ``scale`` is a device
     tensor that broadcasts against ``x``."""
-    qmax = 2.0 ** (bits - 1) - 1.0
+    qmax = qmax_of(bits)
     return torch.clamp(torch.round(x.float() / scale), -qmax, qmax).to(torch.int8)
 
 

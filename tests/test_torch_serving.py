@@ -41,7 +41,7 @@ from cnn_quantization_tpu_torch.cli.inference_sim import main
 from cnn_quantization_tpu_torch.engine.context import ServingInt8Context
 from cnn_quantization_tpu_torch.engine.evaluate import evaluate
 from cnn_quantization_tpu_torch.models import layers
-from cnn_quantization_tpu_torch.models.layers import QConv, QTensor
+from cnn_quantization_tpu_torch.models.layers import PackedQTensor, QConv, QTensor
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.utils.flax_params import (act_scales_from_jax,
                                                           state_dict_from_flax)
@@ -217,9 +217,12 @@ def test_frozen_serving_matches_jax_per_conv_and_end_to_end(serving, batches, gr
     real = ic.int8_conv
 
     def recording(x, w_codes, w_scale, bias=None, **kw):
-        y = real(x, w_codes, w_scale, bias, **kw)
-        calls.append(((x, w_codes, w_scale, bias, kw), y))
-        return y
+        # each conv's float output, the value its epilogue then requantizes
+        # or adds the block's identity to
+        conv = {k: v for k, v in kw.items()
+                if k not in ('fuse_relu', 'out_scale', 'out_bits', 'residual')}
+        calls.append(((x, w_codes, w_scale, bias, conv), real(x, w_codes, w_scale, bias, **conv)))
+        return real(x, w_codes, w_scale, bias, **kw)
 
     monkeypatch.setattr(ic, 'int8_conv', recording)
     got, aux = s.eng.make_forward(quantized='serving_int8',
@@ -316,8 +319,8 @@ def test_bridge_carries_prepared_tree_and_scales(serving):
 def test_packed_serving_fails_loudly(pair, serving, batches):
     """Packed serving is ported (``tests/test_torch_packed_serving.py``); what
     it cannot honour still fails loudly: 8-bit activations under ``packed``,
-    and a conv handed a residual, an ``out_spec`` or a fused ReLU off the
-    packed path.  On this BasicBlock trunk ``packed`` itself is a no-op."""
+    and a conv handed a packed residual, an ``out_spec`` or a fused ReLU off
+    the packed path.  On this BasicBlock trunk ``packed`` itself is a no-op."""
     s = serving['w4a4']
     x = batches[0][0]
     scales = s.eng.freeze_serving_scales(s.sp, batches, packed=True)
@@ -338,7 +341,7 @@ def test_packed_serving_fails_loudly(pair, serving, batches):
     conv = pair.model.layer1[0].conv1
     x = torch.zeros(1, 64, 8, 8)
     ctx = ServingInt8Context()
-    for kw in (dict(residual=QTensor(x.to(torch.int8), torch.tensor(1.0))),
+    for kw in (dict(residual=PackedQTensor(x[:, :32].to(torch.int8), torch.tensor(1.0))),
                dict(fuse_relu=True)):
         with pytest.raises(ValueError, match='packed 1x1 GEMM path'):
             conv(x, ctx, **kw)
