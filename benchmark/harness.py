@@ -212,7 +212,7 @@ def check(arch, size, traffic, state, window, params, calibration, pool, device)
     needed = sorted(set(window['order']))
     with torch.no_grad():
         if traffic['path'] == 'sim':
-            ref_pq = recipes.sim_weights(params)
+            ref_pq = recipes.sim_weights(arch, params)
             ref_qp = recipes.freeze(arch, recipes.collect(arch, params, cal, device), size,
                                     device)
             numbers = {'weights': judge.tree_gap(state['params'], ref_pq),
@@ -254,7 +254,7 @@ def control_numbers(name: str, seed: int, *, device='cuda', overrides=None, spec
     order = list(range(len(pool)))
     with torch.no_grad():
         if traffic['path'] == 'sim':
-            pq = recipes.sim_weights(low)
+            pq = recipes.sim_weights(arch, low)
             qp = recipes.freeze(arch, recipes.collect(arch, low, cal, device, control=True),
                                 size, device)
             state = {'params': pq, 'qparams': {

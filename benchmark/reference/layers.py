@@ -51,9 +51,11 @@ class FloatOps:
     def linear(self, P, x, name, site):
         return self.tap(F.linear(x.float(), P[f'{name}.weight'], P.get(f'{name}.bias')), site)
 
-    def bn(self, P, x, name, site):
+    def bn(self, P, x, name, site, eps=1e-5):
+        """An inference batch norm; a walk passes the ``eps`` its network
+        builds the norm with."""
         shape = (1, -1, 1, 1)
-        inv = P[f'{name}.weight'] * torch.rsqrt(P[f'{name}.running_var'] + 1e-5)
+        inv = P[f'{name}.weight'] * torch.rsqrt(P[f'{name}.running_var'] + eps)
         y = (x.float() - P[f'{name}.running_mean'].view(shape)) * inv.view(shape) \
             + P[f'{name}.bias'].view(shape)
         return self.tap(y, site)
@@ -151,9 +153,6 @@ class ServingOps(FloatOps):
         b = None if bias is None else Q.column(bias, o, w.device)
         return Q.dequant(Q.int_matmul(codes.reshape(-1, codes.shape[-1]), w.t()), alpha, b,
                          (1, -1))
-
-    def bn(self, P, x, name, site):
-        return FloatOps.bn(self, P, x, name, site)
 
     def stem_out(self, x, site):
         s = self._scale(site)

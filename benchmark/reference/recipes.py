@@ -3,7 +3,8 @@ images, and the logits they give.
 
 * The simulation's headline recipe (``-pcq_w -pcq_a --qtype int4 -qw int4 -c
   laplace -baa -baw -bcw -sm use``): 4-bit per-channel weights with per-channel
-  bit allocation (8 bits for the three-channel stem and the classifier) and
+  bit allocation (8 bits for the three-channel stem, the classifier and the
+  convs a walk names in ``EIGHT_BIT_WEIGHTS``) and
   bias correction; activation statistics of the calibration images; per-site
   frozen (delta, offset, qmax): Laplace clipping with bit allocation at the
   4-bit sites, the stem's output at 8 bits, min/max grids at the pools and
@@ -93,14 +94,26 @@ def _nchw(images, device):
 
 # ------------------------------------------------------------- simulation
 
-def sim_weights(P):
+def eight_bit_weights(arch) -> tuple:
+    """The module paths whose weights the walk of ``arch`` keeps at 8 bits
+    (its ``EIGHT_BIT_WEIGHTS``, matched as substrings of a weight's path, as
+    the program's ``ModelMeta.eight_bit_weight_names``); none if it declares
+    none."""
+    return tuple(getattr(model(arch), 'EIGHT_BIT_WEIGHTS', ()))
+
+
+def sim_weights(arch, P):
     """4-bit per-channel weights with bit allocation, bias-corrected; the
-    three-channel stem and the classifier at 8 bits."""
+    three-channel stem, the classifier and the walk's ``EIGHT_BIT_WEIGHTS``
+    at 8 bits."""
+    eight_bit = eight_bit_weights(arch)
     out = dict(P)
     for k, w in P.items():
         if not _is_weight(k, w):
             continue
-        bits = 8 if (w.ndim == 4 and w.shape[1] == 3) or w.ndim == 2 else 4
+        path = k[:-len('.weight')]
+        bits = 8 if (w.ndim == 4 and w.shape[1] == 3) or w.ndim == 2 \
+            or any(n in path for n in eight_bit) else 4
         t = w.contiguous()
         s = Q.channel_stats(t, ['min', 'max'], axis=0)
         if bits <= 4:

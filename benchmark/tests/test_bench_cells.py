@@ -7,13 +7,14 @@ import torch
 
 from benchmark import harness
 
-from .conftest import CELLS, TINY, spec
+from .conftest import CELLS, LOADED, SWEEPS, spec, tiny
 
 SEED = 2 ** 31 + 11
 
 
 def run(cell, fault=None):
-    overrides = dict(TINY, pool=3) if cell.endswith('b8') else TINY
+    closed = LOADED[cell]['traffic']['loop'] == 'closed'
+    overrides = tiny(cell, pool=3) if closed else tiny(cell)
     return harness.run_cell(cell, SEED, 0.5, False, device='cpu', overrides=overrides,
                             fault=fault, spec=spec())
 
@@ -33,7 +34,8 @@ def test_control_is_not_correct(cell):
     """The reference in the precision below the configuration's (on the CPU,
     its weights read in bfloat16; TF32 exists only on the card) fails one
     number at least."""
-    numbers = harness.control_numbers(cell, SEED, device='cpu', overrides=TINY, spec=spec())
+    numbers = harness.control_numbers(cell, SEED, device='cpu', overrides=tiny(cell),
+                                      spec=spec())
     ok, checks = harness.judge.verdict(numbers, harness.load_cell(cell, spec())['limits'])
     assert not ok, checks
 
@@ -66,14 +68,14 @@ def altered(logits):
     return out
 
 
-@pytest.mark.parametrize('cell', ['resnet50.w8a8_serving.b128', 'resnet50.w8a8_serving.b8'])
+@pytest.mark.parametrize('cell', CELLS)
 @pytest.mark.parametrize('fault', ['stale', 'half_batch', 'altered'])
 def test_broken_timed_path_is_not_correct(cell, fault):
     out = run(cell, fault=stale() if fault == 'stale' else globals()[fault])
     assert not out['correct'], out['checks']
 
 
-@pytest.mark.parametrize('cell', ['resnet50.w4a4_sim.b128', 'resnet50.w8a8_serving.b128'])
+@pytest.mark.parametrize('cell', SWEEPS)
 @pytest.mark.parametrize('fault', ['misses', 'one_more'])
 def test_miscounted_topk_is_not_correct(cell, fault, monkeypatch):
     """``evaluate``'s counts broken, its logits left right: the errors counted

@@ -9,7 +9,7 @@ import pytest
 
 from benchmark import harness
 
-from .conftest import ROOT, TINY, spec
+from .conftest import CELLS, LOADED, ONLINE, ROOT, SWEEPS, tiny
 
 PROBE = """
 import json, sys, torch
@@ -21,11 +21,12 @@ print(json.dumps(sorted({{m.split('.')[0] for m in sys.modules}})))
 """
 
 
-@pytest.mark.parametrize('cell', ['resnet50.w4a4_sim.b128', 'resnet50.w8a8_serving.b8'])
+# a sweep and the closed loop
+@pytest.mark.parametrize('cell', [SWEEPS[0], ONLINE])
 def test_a_run_loads_neither_jax_nor_the_jax_package(cell):
     """Top-level module names compared whole: the port's own name begins
     with the JAX package's."""
-    proc = subprocess.run([sys.executable, '-c', PROBE.format(cell=cell, tiny=TINY)],
+    proc = subprocess.run([sys.executable, '-c', PROBE.format(cell=cell, tiny=tiny(cell))],
                           cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = set(json.loads(proc.stdout.strip().splitlines()[-1]))
@@ -42,7 +43,7 @@ def test_forbidden_names_are_whole_words(monkeypatch):
 
 def _run_cli(cwd):
     return subprocess.run([sys.executable, '-m', 'benchmark.run', '--workload',
-                           'resnet50.w8a8_serving.b128', '--seed', '1', '--seconds', '1',
+                           CELLS[0], '--seed', '1', '--seconds', '1',
                            '--trace', '0'], cwd=cwd, capture_output=True, text=True, timeout=300)
 
 
@@ -69,8 +70,9 @@ def card_absent():
 
 @pytest.mark.cuda
 def test_one_short_run_on_the_card(card):
+    cell = next(c for c in SWEEPS if LOADED[c]['traffic']['path'] == 'serving')
     proc = subprocess.run([sys.executable, '-m', 'benchmark.run', '--workload',
-                           'resnet50.w8a8_serving.b128', '--seed', '3', '--seconds', '2',
+                           cell, '--seed', '3', '--seconds', '2',
                            '--trace', '1'], cwd=ROOT, capture_output=True, text=True,
                           timeout=1200)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -27,7 +27,6 @@ def test_cell_files_found_by_name(cell):
     w = c['workload']
     assert NAME.match(w['name']) and NAME.match(w['traffic']) and w['chips'] == 1
     assert 1 <= len(w['why']) <= 200
-    assert c['config']['arch'] in ('resnet50', 'mobilenet_v2')
     recipes.model(c['config']['arch'])          # its plain reference beside it
     assert c['traffic']['path'] in ('sim', 'serving')
     assert set(c['limits']) >= {'weights', 'logits'}
@@ -75,3 +74,33 @@ def test_config_entry(config):
     data = json.loads((harness.HERE.parent / config['file']).read_text())
     assert data['source'] == config['source'] and data['dtype'] == 'float32'
     assert data['tf32'] is False
+
+
+def program_parameters(config: dict) -> list:
+    """(name, shape) of every entry of the program's state dict for
+    ``config``, in order: the shapes ``harness.run_cell`` draws the weights
+    from, one after another from one stream."""
+    from cnn_quantization_tpu_torch.models import build_model
+    model, _ = build_model(config['arch'], device='meta', input_size=config['input_size'])
+    return [(k, tuple(v.shape)) for k, v in model.state_dict().items()]
+
+
+def same_parameters(walk_shapes: dict, config: dict) -> bool:
+    """Whether a walk's ``param_shapes()`` names the program's parameters
+    with their shapes in the program's order: ``harness.control_numbers``
+    draws the weights in the walk's order and ``harness.run_cell`` in the
+    program's, so an order of their own gives the two different weights."""
+    return list(walk_shapes.items()) == program_parameters(config)
+
+
+@pytest.mark.parametrize('config', SPEC['configs'], ids=lambda c: c['name'])
+def test_reference_parameters_are_the_programs(config):
+    data = json.loads((harness.HERE.parent / config['file']).read_text())
+    assert same_parameters(recipes.model(data['arch']).param_shapes(), data)
+
+
+def test_a_reordered_walk_is_caught():
+    data = json.loads((harness.HERE.parent / SPEC['configs'][0]['file']).read_text())
+    shapes = list(recipes.model(data['arch']).param_shapes().items())
+    assert not same_parameters(dict(shapes[1:] + shapes[:1]), data)
+    assert not same_parameters(dict(shapes[:-1]), data)

@@ -1,15 +1,28 @@
 """The frozen yardstick: multiply-accumulates against the papers' counts,
 the bounds' arithmetic and the kernel classes."""
 
+import json
+
 import pytest
 
-from benchmark import yardstick
+from benchmark import harness, yardstick
+
+from .conftest import spec
 
 
 @pytest.mark.parametrize('arch,gmacs', [('resnet50', 4.1), ('mobilenet_v2', 0.3)])
 def test_macs_match_the_papers(arch, gmacs):
     w = yardstick.work(arch, 224, 1)
     assert w['ops'] / 2 / 1e9 == pytest.approx(gmacs, rel=0.01)
+
+
+@pytest.mark.parametrize('config', spec()['configs'], ids=lambda c: c['name'])
+def test_macs_match_the_configuration(config):
+    """The walk at the configuration's own size counts the multiply-accumulates
+    its file states (``macs_per_image``)."""
+    data = json.loads((harness.HERE.parent / config['file']).read_text())
+    assert yardstick.work(data['arch'], data['input_size'], 1)['ops'] == \
+        2 * data['macs_per_image']
 
 
 def test_bounds_scale_with_the_batch():
