@@ -16,7 +16,10 @@ Port of ``cnn_quantization_tpu/models/inception.py``:
   * the 1x7/7x1 and 1x3/3x1 filters pad asymmetrically ((0, 3), (3, 0),
     (0, 1), (1, 0)); on the serving path they take the int8 conv's TMA
     im2col route where C is a multiple of 64;
-  * ``transform_input`` renormalizes the input as the pretrained model does.
+  * ``transform_input`` renormalizes the input as the pretrained model does;
+  * each mixed block's forward is a fine span ``layer.Inception<A-E>`` under a
+    profiler, and its concatenations count the bytes they write
+    (``ops.kernels.CONCAT``, ``concat.bytes`` in ``engine.forward``'s counts).
 
 Module names are torchvision's own (``Mixed_5b.branch5x5_1.conv``,
 ``Mixed_7a.branch7x7x3_4.conv``): their ``_<digits>`` are part of the name,
@@ -31,6 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..engine.context import TapContext
+from ..ops.kernels import CONCAT
+from ..utils.spans import traced
 from .googlenet import BasicConv2d, transform_input
 from .layers import QLinear, SiteNamer
 
@@ -43,6 +48,14 @@ def _avg_pool(x):
 
 def _max_pool(x):
     return F.max_pool2d(x, 3, 2)
+
+
+def _cat(parts):
+    """The branches joined along the channels; the bytes written counted
+    from the output's shape."""
+    y = torch.cat(parts, 1)
+    CONCAT.bytes += y.numel() * y.element_size()
+    return y
 
 
 class _Mixed(nn.Module):
@@ -66,12 +79,13 @@ class InceptionA(_Mixed):
                           ('branch_pool', in_ch, pool_features, 1, 1, 0)), fold_bn, sites)
         self.out_ch = 64 + 64 + 96 + pool_features
 
+    @traced('layer.InceptionA')
     def forward(self, x, ctx: TapContext):
         b1 = self.branch1x1(x, ctx)
         b5 = self.branch5x5_2(self.branch5x5_1(x, ctx), ctx)
         b3 = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x, ctx), ctx), ctx)
         bp = self.branch_pool(_avg_pool(x), ctx)
-        return torch.cat([b1, b5, b3, bp], 1)
+        return _cat([b1, b5, b3, bp])
 
 
 class InceptionB(_Mixed):
@@ -82,10 +96,11 @@ class InceptionB(_Mixed):
                           ('branch3x3dbl_3', 96, 96, 3, 2, 0)), fold_bn, sites)
         self.out_ch = 384 + 96 + in_ch
 
+    @traced('layer.InceptionB')
     def forward(self, x, ctx: TapContext):
         b3 = self.branch3x3(x, ctx)
         bd = self.branch3x3dbl_3(self.branch3x3dbl_2(self.branch3x3dbl_1(x, ctx), ctx), ctx)
-        return torch.cat([b3, bd, _max_pool(x)], 1)
+        return _cat([b3, bd, _max_pool(x)])
 
 
 class InceptionC(_Mixed):
@@ -102,6 +117,7 @@ class InceptionC(_Mixed):
                           ('branch_pool', in_ch, 192, 1, 1, 0)), fold_bn, sites)
         self.out_ch = 4 * 192
 
+    @traced('layer.InceptionC')
     def forward(self, x, ctx: TapContext):
         b1 = self.branch1x1(x, ctx)
         b7 = self.branch7x7_3(self.branch7x7_2(self.branch7x7_1(x, ctx), ctx), ctx)
@@ -109,7 +125,7 @@ class InceptionC(_Mixed):
         for i in range(2, 6):
             bd = getattr(self, f'branch7x7dbl_{i}')(bd, ctx)
         bp = self.branch_pool(_avg_pool(x), ctx)
-        return torch.cat([b1, b7, bd, bp], 1)
+        return _cat([b1, b7, bd, bp])
 
 
 class InceptionD(_Mixed):
@@ -122,12 +138,13 @@ class InceptionD(_Mixed):
                           ('branch7x7x3_4', 192, 192, 3, 2, 0)), fold_bn, sites)
         self.out_ch = 320 + 192 + in_ch
 
+    @traced('layer.InceptionD')
     def forward(self, x, ctx: TapContext):
         b3 = self.branch3x3_2(self.branch3x3_1(x, ctx), ctx)
         b7 = self.branch7x7x3_1(x, ctx)
         for i in range(2, 5):
             b7 = getattr(self, f'branch7x7x3_{i}')(b7, ctx)
-        return torch.cat([b3, b7, _max_pool(x)], 1)
+        return _cat([b3, b7, _max_pool(x)])
 
 
 class InceptionE(_Mixed):
@@ -143,14 +160,15 @@ class InceptionE(_Mixed):
                           ('branch_pool', in_ch, 192, 1, 1, 0)), fold_bn, sites)
         self.out_ch = 320 + 2 * 384 + 2 * 384 + 192
 
+    @traced('layer.InceptionE')
     def forward(self, x, ctx: TapContext):
         b1 = self.branch1x1(x, ctx)
         b3 = self.branch3x3_1(x, ctx)
-        b3 = torch.cat([self.branch3x3_2a(b3, ctx), self.branch3x3_2b(b3, ctx)], 1)
+        b3 = _cat([self.branch3x3_2a(b3, ctx), self.branch3x3_2b(b3, ctx)])
         bd = self.branch3x3dbl_2(self.branch3x3dbl_1(x, ctx), ctx)
-        bd = torch.cat([self.branch3x3dbl_3a(bd, ctx), self.branch3x3dbl_3b(bd, ctx)], 1)
+        bd = _cat([self.branch3x3dbl_3a(bd, ctx), self.branch3x3dbl_3b(bd, ctx)])
         bp = self.branch_pool(_avg_pool(x), ctx)
-        return torch.cat([b1, b3, bd, bp], 1)
+        return _cat([b1, b3, bd, bp])
 
 
 _STEM = (  # name, in_ch, out_ch, kernel, stride, padding; a max pool after 2b and 4a

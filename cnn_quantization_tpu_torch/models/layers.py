@@ -302,6 +302,7 @@ class QConv(nn.Module):
             # quantize the image, then pad + space-to-depth in the int8 domain
             # (zero padding is exact at zero point 0), stride-1 equivalent conv
             from ..engine.engine import s2d_stem_input
+            int_matmul.count_float_in(int_conv.FEATURE_CALLS, x)
             codes = int_matmul.quantize_sym_codes(x, act_scale)
             y = int_conv.int8_conv(s2d_stem_input(codes), w_codes, w_scale, self.bias,
                                    strides=(1, 1), padding=(0, 0), act_bits=8,
@@ -410,6 +411,7 @@ class QLinear(nn.Module):
                 ctx.record_scale(site_id, act_scale)
                 if getattr(ctx, 'calibrate', False):
                     ctx.record_input_stats(site_id, xf)
+        int_matmul.count_float_in(int_matmul.FEATURE_CALLS, xf)
         x_q = int_matmul.quantize_sym_codes(xf, act_scale)
         y = int_matmul.int8_matmul_dequant(x_q.reshape(-1, x_q.shape[-1]), w_codes.t(),
                                            act_scale * w_scale, self.bias,

@@ -49,7 +49,9 @@ launches of the conv kernel, and nothing else; ``launches_depthwise``,
 ``launches_im2col_wgmma`` and ``launches_implicit_gemm`` count them by route;
 ``FEATURE_CALLS.codes_out`` and ``.residual_in`` count the calls of
 ``int8_conv_dequant``, on either device, whose epilogue emits codes or adds a
-residual.
+residual; ``FEATURE_CALLS.float_in_bytes`` the bytes of floating activations
+that ``int8_conv`` and ``int8_conv_im2col`` take in and quantize themselves (0
+for a call handed codes).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from .int_matmul import quantize_sym_codes, quantize_sym_int8
 
 _lib = None
 # as int_matmul.FEATURE_CALLS, for the conv wrapper
-FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0)
+FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0, float_in_bytes=0)
 
 
 def _library():
@@ -95,6 +97,7 @@ def _quantize_act(x, act_bits: int, act_scale):
     if act_scale is None:
         if x.dtype == torch.int8:
             raise ValueError('int8 codes input requires act_scale')
+        int_matmul.count_float_in(FEATURE_CALLS, x)
         return quantize_sym_int8(x.float(), bits=act_bits)
     scale = as_f32(act_scale, x.device)
     if scale.ndim == 1 and scale.shape[0] != x.shape[1]:
@@ -102,6 +105,7 @@ def _quantize_act(x, act_bits: int, act_scale):
                          f'{x.shape[1]} input channels')
     if x.dtype == torch.int8:
         return x, scale
+    int_matmul.count_float_in(FEATURE_CALLS, x)
     per = scale.view(1, -1, 1, 1) if scale.ndim == 1 else scale
     return quantize_sym_codes(x, per, act_bits), scale
 

@@ -42,7 +42,10 @@ For tensors on the CPU the wrapper runs the plain version; for CUDA tensors it
 launches the kernel or raises.  ``int8_matmul_dequant.launches`` counts kernel
 launches, and nothing else; ``launches_wgmma`` and ``launches_mma_sync`` count
 them by route; ``FEATURE_CALLS.codes_out`` and ``.residual_in`` count the
-calls, on either device, whose epilogue emits codes or adds a residual.
+calls, on either device, whose epilogue emits codes or adds a residual;
+``FEATURE_CALLS.float_in_bytes`` the bytes of floating activations that a
+linear layer quantizes itself before it calls the wrapper with their codes
+(``count_float_in``).
 """
 
 from __future__ import annotations
@@ -57,9 +60,10 @@ from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
-# the wrapper's calls whose epilogue emits codes or adds a residual; kept off
-# the wrapper, which instrumentation replaces with a function that calls it
-FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0)
+# the wrapper's calls whose epilogue emits codes or adds a residual, and the
+# bytes of floats quantized on entry to an integer linear; kept off the
+# wrapper, which instrumentation replaces with a function that calls it
+FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0, float_in_bytes=0)
 
 
 def _library():
@@ -125,6 +129,13 @@ def count_features(calls, out_scale, residual):
     residual."""
     calls.codes_out += out_scale is not None
     calls.residual_in += residual is not None
+
+
+def count_float_in(calls, x):
+    """Counts in ``calls`` the bytes of the floating activation ``x`` that an
+    integer conv or linear takes in and quantizes itself: a host add from
+    ``x``'s shape, nothing read from the device."""
+    calls.float_in_bytes += x.numel() * x.element_size()
 
 
 def gemm_route(k: int, aligned: bool = True) -> str:

@@ -15,13 +15,16 @@ card runs it: ``python -m pytest --noconftest -m cuda
 tests/test_torch_codes_epilogue.py``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
 from cnn_quantization_tpu_torch.engine import QuantEngine, QuantPolicy
-from cnn_quantization_tpu_torch.models import build_model, resnet
-from cnn_quantization_tpu_torch.models.layers import QConv, QTensor, relu
+from cnn_quantization_tpu_torch.models import build_model, inception, resnet
+from cnn_quantization_tpu_torch.models.googlenet import BasicConv2d
+from cnn_quantization_tpu_torch.models.layers import QConv, QLinear, QTensor, relu
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
 from cnn_quantization_tpu_torch.ops.kernels.int_matmul import quantize_sym_codes
@@ -140,13 +143,13 @@ def _elementwise_forward(self, x, ctx):
     return self.fc(y.flatten(1), ctx).float()
 
 
-def _serving(arch, dtype='float32', grid='int8'):
-    model, meta = build_model(arch, device='cpu', seed=3, dtype=dtype, input_size=SIZE)
+def _serving(arch, dtype='float32', grid='int8', size=SIZE):
+    model, meta = build_model(arch, device='cpu', seed=3, dtype=dtype, input_size=size)
     eng = QuantEngine(model, QuantPolicy(arch=arch, qtype=grid, qweight=grid), meta)
     sp = eng.prepare_serving_params(eng.quantize_params(dict(model.state_dict())))
     rng = np.random.RandomState(4)
-    cal = [(rng.rand(2, SIZE, SIZE, 3).astype(np.float32), np.zeros(2, np.int32))]
-    return eng, sp, cal, rng.rand(2, SIZE, SIZE, 3).astype(np.float32)
+    cal = [(rng.rand(2, size, size, 3).astype(np.float32), np.zeros(2, np.int32))]
+    return eng, sp, cal, rng.rand(2, size, size, 3).astype(np.float32)
 
 
 @pytest.mark.parametrize('arch,dtype,grid', [('resnet18', 'float32', 'int8'),
@@ -181,11 +184,50 @@ def test_serving_forward_equals_the_elementwise_path(arch, dtype, grid, monkeypa
 
 
 def _forward_counts(fwd, *args):
+    """The counts of the ``engine.forward`` span of ``fwd(*args)`` (on the
+    CPU no kernel launches: the epilogue features and the bytes alone)."""
     mark = spans.snapshot()['spans']
     mark = mark[-1].seq if mark else -1
     fwd(*args)
     (f,) = [s for s in spans.snapshot()['spans'] if s.seq > mark and s.name == 'engine.forward']
-    return {k: n for k, n in f.counts.items() if k.split('.')[1] in ('codes_out', 'residual_in')}
+    return f.counts
+
+
+@contextlib.contextmanager
+def _bytes_seen(model):
+    """Counts, at the modules' boundaries, what a forward should count: the
+    float32 bytes of every floating input an integer conv (in_ch != 3) or
+    the classifier takes (codes count nothing), and the bytes of every
+    concatenation: each Inception-v3 mixed block's output, and inside a
+    Mixed_7b/7c the outputs of the two pairs of 1x3/3x1 convs it joins."""
+    seen = {'int8_conv.float_in_bytes': 0, 'int8_gemm.float_in_bytes': 0, 'concat.bytes': 0}
+
+    def float_in(key):
+        def hook(mod, args):
+            if not isinstance(args[0], QTensor):
+                seen[key] += args[0].numel() * 4
+        return hook
+
+    def out_bytes(mod, args, y):
+        seen['concat.bytes'] += y.numel() * 4
+
+    handles = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, QConv) and mod.in_ch != 3:
+            handles.append(mod.register_forward_pre_hook(float_in('int8_conv.float_in_bytes')))
+        elif isinstance(mod, QLinear):
+            handles.append(mod.register_forward_pre_hook(float_in('int8_gemm.float_in_bytes')))
+        elif isinstance(mod, inception._Mixed) or (
+                isinstance(mod, BasicConv2d) and name.split('.')[-1] in (
+                    'branch3x3_2a', 'branch3x3_2b', 'branch3x3dbl_3a', 'branch3x3dbl_3b')):
+            handles.append(mod.register_forward_hook(out_bytes))
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+        for k in [k for k, n in seen.items() if n == 0]:
+            del seen[k]
 
 
 @pytest.mark.parametrize('arch,want', [
@@ -193,18 +235,34 @@ def _forward_counts(fwd, *args):
     # conv2 + 3 strided downsamples on the conv; the identity into each conv3
     ('resnet50', {'int8_gemm.codes_out': 32, 'int8_conv.codes_out': 19,
                   'int8_gemm.residual_in': 16}),
-    ('mobilenet_v2', {})])
+    ('mobilenet_v2', {}),
+    # floats between every conv; 15 concatenations
+    ('inception_v3', {})])
 def test_feature_counts_per_forward(arch, want):
     """Per serving forward with frozen scales, in the ``engine.forward``
-    span; nothing without them, and nothing in calibration."""
-    eng, sp, cal, x = _serving(arch)
+    span: codes out and residuals in, nothing of them without frozen scales
+    nor in calibration; the bytes of floats the integer convs and the
+    classifier quantize on entry, and of the concatenations, with and
+    without frozen scales."""
+    eng, sp, cal, x = _serving(arch, size=75 if arch == 'inception_v3' else SIZE)
     counters = (im.FEATURE_CALLS, ic.FEATURE_CALLS)
-    before = [vars(c).copy() for c in counters]
+    before = [(c.codes_out, c.residual_in) for c in counters]
     scales = eng.freeze_serving_scales(sp, cal)
-    assert [vars(c) for c in counters] == before
-    assert _forward_counts(eng.make_forward(quantized='serving_int8', act_scales=scales),
-                           sp, None, x) == want
-    assert _forward_counts(eng.make_forward(quantized='serving_int8'), sp, None, x) == {}
+    assert [(c.codes_out, c.residual_in) for c in counters] == before
+    for fwd, features in ((eng.make_forward(quantized='serving_int8', act_scales=scales), want),
+                          (eng.make_forward(quantized='serving_int8'), {})):
+        with _bytes_seen(eng.model) as seen:
+            got = _forward_counts(fwd, sp, None, x)
+        assert got == dict(features, **seen)
+        fc = next(m for m in eng.model.modules() if isinstance(m, QLinear))
+        assert seen['int8_gemm.float_in_bytes'] == 2 * fc.weight.shape[1] * 4
+        assert ('concat.bytes' in seen) == (arch == 'inception_v3')
+    if arch == 'inception_v3':
+        # at 75x75 the blocks write 256, 288 and 288 channels at 7x7, 768 at
+        # 3x3 five times, 1280, 2048 and 2048 at 1x1, and 7b and 7c join two
+        # pairs of 384 channels at 1x1 each
+        assert seen['concat.bytes'] == 2 * 4 * (
+            (256 + 288 + 288) * 49 + 768 * 9 * 5 + 1280 + 2 * (2048 + 2 * 768))
 
 
 def test_forward_without_frozen_scales_keeps_floats(monkeypatch):
