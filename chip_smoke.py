@@ -90,7 +90,11 @@ implicit GEMM; the int4 GEMM TMA + wgmma or mma.sync.  ``int8_kernels_vs_plain``
 and ``int4_kernel_vs_plain`` hold every route against the plain version, each
 path's phase holds the launches by route against the route functions applied
 to the model's modules, and ``int8_timing``/``int4_timing`` time each timed
-shape on its route and on the mma.sync route beside it.
+shape on its route and on the mma.sync route beside it.  ``quantize_codes_timing``
+times the float hand-off's codes kernel (``csrc/fake_quant.cu``) at the serving
+models' largest entry tensors beside the plain composition it replaces; the
+serving path counts its launches in the frozen evaluation (two a forward: the
+stem output and the classifier's input).
 
 Each phase prints one JSON line; the last two lines are the ``kernels`` table
 (each path's launches; the slice-9 to slice-11 phases' as
@@ -158,6 +162,8 @@ STAGE1_ACT = (64, 256, 56, 56)   # ResNet-50 layer1 output at 224x224, batch 64
 REPLACES = 'cnn_quantization_tpu/ops/kernels/fake_quant.py:63'
 REPLACES_GEMM = 'cnn_quantization_tpu/ops/kernels/int_matmul.py:58'
 REPLACES_CONV = 'cnn_quantization_tpu/ops/kernels/int_conv.py:63'
+# no TPU kernel: XLA fuses the codes of quantize_sym_int8 into their producer
+REPLACES_CODES = 'cnn_quantization_tpu/ops/kernels/int_matmul.py:104'
 # (M, K, N): the serving path's own shapes at 224x224, batch 64 (M = batch * H
 # * W), the classifier at batch 128, three of MobileNet-v2's at batch 128: K =
 # 24 (no multiple of 16: the mma.sync route and its byte-wise loader), N = 16
@@ -224,6 +230,12 @@ TIMED_GEMMS = ((200704, 256, 64), (3136, 512, 2048), (4096, 16384, 4096), (32, 2
 # conv1 GEMM at batch 64 and its 3x3 conv2 at batch 128 ([N, C, H, W], O)
 CODES_TIMED_GEMM = (200704, 256, 64)
 CODES_TIMED_CONV = ((128, 64, 56, 56), 64)
+# the float hand-off's largest entry tensors at the serving cells' batches
+# (name, NCHW shape, one scale a channel): Inception-v3's Conv2d_2a input at
+# 299x299, MobileNet-v2's widest depthwise input, ResNet-50's stem output
+CODES_TIMED = (('inception_v3.Conv2d_2a_3x3', (128, 32, 149, 149), False),
+               ('mobilenet_v2.depthwise_c96', (128, 96, 112, 112), True),
+               ('resnet50.stem_b256', (256, 64, 112, 112), False))
 TIMED_CONVS = ('3x3_s1_c64', '3x3_s1_c512', '3x3_s1_c128_b128', '3x3_s1_c256_b128',
                '3x3_s1_c512_b128', '1x1_s2_c256', 'dw_s1_c144_b128', 'dw_s2_c96_b128',
                'inc_1x7_c128', 'shuf_g8_1x1_c768')
@@ -662,6 +674,9 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     images = batches[0][0]
     _, gemm_per, conv_per = launch_table(model)
     _, _, conv_s2d = launch_table(model, s2d_stem=True)
+    # a frozen forward's float hand-offs: the stem output at the first block's
+    # scale and the classifier's input; the blocks pass codes
+    codes_per = 1 + sum(isinstance(m, QLinear) for m in model.modules())
     routes_per, routes_s2d = route_table(model), route_table(model, s2d_stem=True)
 
     def serve(eng, sp, scales):
@@ -677,7 +692,9 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     pq = eng.quantize_params(params)
     sp = eng.prepare_serving_params(pq)
     scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max')
+    im.quantize_sym_codes.launches = 0
     res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales)
+    codes_launches = im.quantize_sym_codes.launches
     finite = {}
     aciq = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='aciq')
     finite['aciq'], _ = serve(eng, sp, aciq)
@@ -708,6 +725,8 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
                   conv_launches=conv_launches, predicted_conv_launches=predicted_conv,
                   routes_per_forward=routes_per, route_launches=routes,
                   predicted_route_launches=predicted_routes,
+                  codes_per_forward=codes_per, codes_launches=codes_launches,
+                  predicted_codes_launches=codes_per * eval_batches,
                   frozen_sites=len(scales), frozen_sites_s2d_stem=len(scales_s2d),
                   dynamic_recorded_sites=len(recorded),
                   s2d_stem_kernel=[str(s2d_codes.dtype), list(s2d_codes.shape)],
@@ -925,6 +944,47 @@ def codes_epilogue_timing(device, card):
                                  x_bound=ms / bound_ms, gb_per_s=nbytes / ms / 1e6))
     emit('codes_epilogue_timing', card=card, rows=rows)
     return rows
+
+
+def quantize_codes_timing(device, card):
+    """The float hand-off's codes kernel at ``CODES_TIMED``: float32 in
+    channels_last memory, as the convs hand it on, one scale or one a channel,
+    held equal to the plain composition (divide, round, clamp, cast) and then
+    timed beside it.  Bound: each float read once and each code written once
+    at the memory rate; the tensors exceed the 50 MB L2."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    rows = []
+    for name, shape, per_channel in CODES_TIMED:
+        x = torch.randn(shape, generator=gen, device=device).contiguous(
+            memory_format=torch.channels_last)
+        scale = ((torch.rand(shape[1], generator=gen, device=device) * 0.02 + 0.01)
+                 .view(1, -1, 1, 1) if per_channel else torch.full((), 0.0137, device=device))
+        check(torch.equal(im.quantize_sym_codes(x, scale), im.quantize_sym_codes_plain(x, scale)),
+              f'{name}: codes kernel != plain')
+        ms = cuda_ms(lambda: im.quantize_sym_codes(x, scale))
+        plain_ms = cuda_ms(lambda: im.quantize_sym_codes_plain(x, scale), iters=10)
+        nbytes = 5 * x.numel() + 4 * scale.numel()
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append(dict(name=name, shape=list(shape), per_channel=per_channel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+                         gb_per_s=nbytes / ms / 1e6))
+        del x
+    emit('quantize_codes_timing', card=card, rows=rows)
+    return rows
+
+
+def codes_row(srep, rows):
+    """The ``kernels`` line's row of the float hand-off's codes kernel: its
+    launches in the serving path's frozen evaluation, counted from 0 (a CUDA
+    call launches it or raises), and ``quantize_codes_timing``'s first shape.
+    Held to the plain composition bit for bit, so no error."""
+    t = rows[0]
+    return {'name': 'quantize_codes', 'route': 'cuda',
+            'source': 'cnn_quantization_tpu_torch/csrc/fake_quant.cu', 'replaces': REPLACES_CODES,
+            'shape': t['shape'], 'launches': srep['codes_launches'],
+            'predicted_launches': srep['predicted_codes_launches'], 'max_abs_err': 0,
+            'ms': t['ms'], 'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
+            'bound_by': 'bytes', 'share_of_bound': t['share_of_bound']}
 
 
 def int4_case(name, gen, device):
@@ -3182,6 +3242,9 @@ def main():
           and srep['route_launches'] == srep['predicted_route_launches'],
           f"serving routes launched {srep['route_launches']}, the route table predicts "
           f"{srep['predicted_route_launches']}")
+    check(srep['codes_launches'] == srep['predicted_codes_launches'] == 2 * 4,
+          f"codes kernel launches in the frozen evaluation {srep['codes_launches']} != "
+          f"predicted {srep['predicted_codes_launches']}")
     check(srep['dynamic_recorded_sites'] == srep['gemm_per_forward'] + srep['conv_per_forward']
           and srep['frozen_sites_s2d_stem'] == srep['frozen_sites'] + 1
           and srep['s2d_stem_kernel'] == ['torch.int8', [64, 12, 4, 4]]
@@ -3248,6 +3311,7 @@ def main():
     del act
     timing = int8_timing(device, card)
     codes_epilogue_timing(device, card)
+    codes_timing = quantize_codes_timing(device, card)
     timing['int4_gemm'] = int4_timing(device, card)
     copy = stream_copy_timing(device, card)
 
@@ -3315,7 +3379,8 @@ def main():
          **slice9['stream_copy'], 'max_abs_err': max(copy_worst, bench_err['stream_copy']),
          'ms': copy['ms'], 'plain_ms': copy['plain_ms'],
          'bound_ms': copy['bound_ms'], 'bound_by': copy['bound_by'],
-         'library_ms': copy['library_ms']}]}))
+         'library_ms': copy['library_ms']},
+        codes_row(srep, codes_timing)]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                              'count': torch.cuda.device_count()}}))
     return 0

@@ -32,10 +32,28 @@
 // even, as torch.round), true IEEE division, and every product and sum through
 // __fmul_rn/__fadd_rn/__fsub_rn so nothing is contracted into an FMA (the
 // build adds --fmad=false as well and never --use_fast_math).
+//
+// The same library holds the serving path's float hand-off, which replaces no
+// TPU kernel (XLA fuses it into the producer there): the int8 codes of float
+// activations, int_matmul.quantize_sym_codes on a CUDA tensor,
+//   code[i] = clamp(rint(x[i] / scale[c]), -qmax, qmax), 0 where the quotient
+//             is NaN (what PyTorch's float-to-int8 cast gives),
+// with one scale or one per channel, channel c as above.  Bound: memory, 4 (or
+// 2) bytes read and 1 written an element.  Design: 16-byte loads of x, four in
+// flight a thread, the codes of one load stored at once; a scalar head up to
+// x's first 16-byte boundary and a ragged tail; one block a resident slot,
+// walking the tensor.  The quotient is cnnq::quotient (int8_mma.cuh): div.rn's
+// result bit for bit from a reciprocal made once a scale (per-channel scales'
+// in shared memory, or made again an element past kCodeMaxChannels), so no
+// full division per element bounds the instruction rate.
+// The kernel's name holds "elementwise_kernel": profiles class it with the
+// elementwise passes it replaces.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "int8_mma.cuh"
 
 namespace {
 
@@ -206,6 +224,207 @@ extern "C" int cnnq_fake_quant(const void* x, void* out, int64_t n, int64_t chan
   } else if (dtype == 1) {
     launch_indexed<__nv_bfloat16>(x, out, n, channels, inner, p0, p1, qmax, p_stride, q_stride,
                                   mode, seed, s);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace cnnq {
+
+constexpr int kCodeThreads = 256;
+constexpr int kCodeUnroll = 4;           // 16-byte loads in flight a thread
+constexpr int kCodeMaxChannels = 4096;   // per-channel divisors held in shared memory: 48 KB
+
+// rint(v / s) clamped to +-q; 0 where the quotient is NaN, as the cast gives
+__device__ __forceinline__ int8_t code_at(float v, const Divisor& d, float q) {
+  const float quo = quotient(v, d);
+  return static_cast<int8_t>(quo != quo ? 0 : code_of(quo, q));
+}
+
+// the floats of one 16-byte load: 4 float32, or 8 bfloat16 widened (a
+// bfloat16 is the upper half of its float32)
+__device__ __forceinline__ void widen(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void widen(const uint4& r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack4(const int8_t* c) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(c[0])) |
+         static_cast<uint32_t>(static_cast<uint8_t>(c[1])) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(c[2])) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(c[3])) << 24;
+}
+
+// V codes to p: one 4- or 8-byte store where `vec` (p aligned to V), else bytes
+template <int V>
+__device__ __forceinline__ void store_codes(int8_t* p, const int8_t (&c)[V], bool vec) {
+  if (vec) {
+    if constexpr (V == 4) {
+      *reinterpret_cast<uint32_t*>(p) = pack4(c);
+    } else {
+      *reinterpret_cast<uint2*>(p) = make_uint2(pack4(c), pack4(c + 4));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) p[k] = c[k];
+  }
+}
+
+// x [n] in memory order (float32 or bfloat16) -> out [n] int8 codes.  The
+// head (elements before x + head, 16-byte aligned) and the tail (after the
+// last whole 16-byte group) are fewer than V each and take one thread an
+// element; the groups between take 16-byte loads.  `vec_out`: out + head is
+// aligned for a V-byte store.
+// how an element finds its scale's divisor: one for all, a table of the
+// channels' in shared memory, or (past kCodeMaxChannels) its channel's made
+// again an element
+enum CodeScales { kOneScale, kScaleTable, kScaleEach };
+
+template <typename T, typename Idx, int SCALES>
+__global__ void __launch_bounds__(kCodeThreads)
+quantize_codes_elementwise_kernel(const T* __restrict__ x, int8_t* __restrict__ out, Idx n,
+                                  Idx head, Idx channels, Idx inner,
+                                  const float* __restrict__ scale, float q, bool vec_out) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char codes_smem[];
+  Divisor* divs = reinterpret_cast<Divisor*>(codes_smem);
+  Divisor d_all{};
+  if constexpr (SCALES == kScaleTable) {
+    for (Idx c = threadIdx.x; c < channels; c += kCodeThreads) divs[c] = divisor(__ldg(scale + c));
+    __syncthreads();
+  } else if constexpr (SCALES == kOneScale) {
+    d_all = divisor(__ldg(scale));
+  }
+  auto div_of = [&](Idx c) {
+    if constexpr (SCALES == kScaleTable) {
+      return divs[c];
+    } else if constexpr (SCALES == kScaleEach) {
+      return divisor(__ldg(scale + c));
+    } else {
+      return d_all;
+    }
+  };
+  const Idx groups = (n - head) / V;
+  const Idx tail = head + groups * V;
+  const Idx tid = static_cast<Idx>(blockIdx.x) * kCodeThreads + threadIdx.x;
+  if (tid < head + (n - tail)) {
+    const Idx i = tid < head ? tid : tail + (tid - head);
+    out[i] = code_at(load_f32(x + i), div_of((i / inner) % channels), q);
+  }
+  const Idx step = static_cast<Idx>(gridDim.x) * kCodeThreads * kCodeUnroll;
+  for (Idx g0 = static_cast<Idx>(blockIdx.x) * kCodeThreads * kCodeUnroll + threadIdx.x;
+       g0 < groups; g0 += step) {
+    uint4 raw[kCodeUnroll];
+#pragma unroll
+    for (int u = 0; u < kCodeUnroll; ++u) {
+      const Idx g = g0 + static_cast<Idx>(u) * kCodeThreads;
+      if (g < groups) raw[u] = *reinterpret_cast<const uint4*>(x + head + g * V);
+    }
+#pragma unroll
+    for (int u = 0; u < kCodeUnroll; ++u) {
+      const Idx g = g0 + static_cast<Idx>(u) * kCodeThreads;
+      if (g >= groups) break;
+      const Idx e = head + g * V;
+      float f[V];
+      widen(raw[u], f);
+      int8_t c[V];
+      if constexpr (SCALES != kOneScale) {
+        // element e's channel, then the next element's by counting
+        Idx ch = (e / inner) % channels, r = e % inner;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          c[k] = code_at(f[k], div_of(ch), q);
+          if (++r == inner) {
+            r = 0;
+            if (++ch == channels) ch = 0;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) c[k] = code_at(f[k], d_all, q);
+      }
+      store_codes<V>(out + e, c, vec_out);
+    }
+  }
+}
+
+// blocks that fit on the card at once (2048 threads an SM), per device
+inline int64_t resident_blocks() {
+  static int sms[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 1024;
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int64_t>(sms[dev]) * (2048 / kCodeThreads);
+}
+
+template <typename T, typename Idx>
+void launch_codes(const void* x, void* out, int64_t n, int64_t channels, int64_t inner,
+                  const float* scale, bool per_channel, float q, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  int64_t head = static_cast<int64_t>((16 - reinterpret_cast<uintptr_t>(x) % 16) % 16 / sizeof(T));
+  if (head > n) head = n;
+  const bool vec_out = (reinterpret_cast<uintptr_t>(out) + head) % V == 0;
+  const int64_t per_block = static_cast<int64_t>(kCodeThreads) * kCodeUnroll;
+  int64_t blocks = ((n - head) / V + per_block - 1) / per_block;
+  const int64_t most = resident_blocks();
+  if (blocks > most) blocks = most;
+  if (blocks < 1) blocks = 1;   // the head and the tail
+  const T* xp = static_cast<const T*>(x);
+  int8_t* op = static_cast<int8_t*>(out);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (!per_channel) {
+    quantize_codes_elementwise_kernel<T, Idx, kOneScale><<<grid, kCodeThreads, 0, stream>>>(
+        xp, op, n, head, channels, inner, scale, q, vec_out);
+  } else if (channels <= kCodeMaxChannels) {
+    quantize_codes_elementwise_kernel<T, Idx, kScaleTable>
+        <<<grid, kCodeThreads, channels * sizeof(Divisor), stream>>>(
+            xp, op, n, head, channels, inner, scale, q, vec_out);
+  } else {
+    quantize_codes_elementwise_kernel<T, Idx, kScaleEach><<<grid, kCodeThreads, 0, stream>>>(
+        xp, op, n, head, channels, inner, scale, q, vec_out);
+  }
+}
+
+}  // namespace cnnq
+
+// The int8 codes of x (n elements in memory order, float32 or bfloat16 by
+// dtype as above) on the grid scale * [-qmax, qmax]: scale is one float32 in
+// device memory, or one a channel where per_channel (channel of i = (i /
+// inner) % channels).  out is n int8 in x's order.  Returns -1 for a
+// malformed call, else cudaGetLastError() after the launch; the caller raises
+// on any non-zero code.
+extern "C" int cnnq_quantize_codes(const void* x, void* out, int64_t n, int64_t channels,
+                                   int64_t inner, const void* scale, int per_channel, float qmax,
+                                   int dtype, void* stream) {
+  if (n <= 0) return 0;
+  if (channels <= 0 || inner <= 0) return -1;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const bool pc = per_channel != 0;
+  // 32-bit indices while an index plus a step of the walk cannot overflow them
+  const bool narrow = n < (int64_t{1} << 31);
+  if (dtype == 0) {
+    if (narrow) cnnq::launch_codes<float, uint32_t>(x, out, n, channels, inner, sc, pc, qmax, s);
+    else cnnq::launch_codes<float, uint64_t>(x, out, n, channels, inner, sc, pc, qmax, s);
+  } else if (dtype == 1) {
+    if (narrow) {
+      cnnq::launch_codes<__nv_bfloat16, uint32_t>(x, out, n, channels, inner, sc, pc, qmax, s);
+    } else {
+      cnnq::launch_codes<__nv_bfloat16, uint64_t>(x, out, n, channels, inner, sc, pc, qmax, s);
+    }
   } else {
     return -1;
   }

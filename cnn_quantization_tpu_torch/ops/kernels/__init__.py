@@ -11,8 +11,9 @@ CONCAT = types.SimpleNamespace(bytes=0)
 
 # each kernel's launch counters by route, then the int8 epilogues' calls that
 # emit codes or add a residual, the bytes of floats the integer convs and
-# linears quantize on entry (on either device), and the concatenations'
-# bytes, as ``launch_counts`` reads them
+# linears quantize on entry (on either device), the concatenations' bytes,
+# and the float hand-off's codes kernel launches, as ``launch_counts`` reads
+# them
 _COUNTERS = (('fake_quant', fake_quant_fused, 'launches'),
              ('int8_gemm.wgmma', _int_matmul.int8_matmul_dequant, 'launches_wgmma'),
              ('int8_gemm.mma_sync', _int_matmul.int8_matmul_dequant, 'launches_mma_sync'),
@@ -27,7 +28,8 @@ _COUNTERS = (('fake_quant', fake_quant_fused, 'launches'),
              ('int8_conv.residual_in', _int_conv.FEATURE_CALLS, 'residual_in'),
              ('int8_gemm.float_in_bytes', _int_matmul.FEATURE_CALLS, 'float_in_bytes'),
              ('int8_conv.float_in_bytes', _int_conv.FEATURE_CALLS, 'float_in_bytes'),
-             ('concat.bytes', CONCAT, 'bytes'))
+             ('concat.bytes', CONCAT, 'bytes'),
+             ('quantize_codes.launches', _int_matmul.quantize_sym_codes, 'launches'))
 
 
 def launch_counts() -> list:

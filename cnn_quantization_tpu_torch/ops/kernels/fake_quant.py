@@ -22,6 +22,10 @@ weights, activations, frozen and dynamic, in three modes:
 For a tensor on the CPU each wrapper runs the plain version; for a CUDA
 tensor it launches the kernel or raises.  ``fake_quant_fused.launches``
 counts kernel launches, and nothing else.
+
+The same library holds the serving path's float hand-off, ``launch_codes``:
+the int8 codes of float activations in one pass, which
+``int_matmul.quantize_sym_codes`` launches and counts.
 """
 
 from __future__ import annotations
@@ -50,6 +54,9 @@ def _library():
             c_ptr, c_ptr, c_i64, c_i64, c_i64, c_ptr, c_ptr, c_ptr, c_i64, c_i64,
             ctypes.c_int, ctypes.c_int, ctypes.c_uint64, c_ptr]
         lib.cnnq_fake_quant.restype = ctypes.c_int
+        lib.cnnq_quantize_codes.argtypes = [c_ptr, c_ptr, c_i64, c_i64, c_i64, c_ptr,
+                                            ctypes.c_int, ctypes.c_float, ctypes.c_int, c_ptr]
+        lib.cnnq_quantize_codes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -98,6 +105,24 @@ def launch(x, p0, p1, qmax, channel_dim, mode, seed=0):
     if rc != 0:
         raise RuntimeError(f'fake-quant kernel launch failed: CUDA error {rc}')
     fake_quant_fused.launches += 1
+    return out
+
+
+def launch_codes(x, scale, qmax: float, channels: int, inner: int, per_channel: bool):
+    """One launch of the codes kernel (``cnnq_quantize_codes``) on ``x``'s
+    current stream: the int8 codes of the float32 or bfloat16 ``x``, dense in
+    memory, at the float32 device ``scale`` (one value, or ``channels``
+    adjacent ones where ``per_channel``, element i of memory taking the
+    ``(i // inner) % channels``-th), with ``x``'s strides.  The caller checks
+    what the kernel takes (``int_matmul.codes_layout``)."""
+    out = torch.empty_strided(x.shape, x.stride(), dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _library().cnnq_quantize_codes(x.data_ptr(), out.data_ptr(), x.numel(), channels,
+                                            inner, scale.data_ptr(), int(per_channel), qmax,
+                                            _DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f'codes kernel launch failed: CUDA error {rc}')
     return out
 
 

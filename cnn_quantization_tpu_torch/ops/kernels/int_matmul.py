@@ -38,6 +38,9 @@ alignment, never by error (a failure on either raises):
   K = 24: 128 x 64 tiles of ``mma.sync.m16n8k32.s8``, ragged M, N and K
   masked.
 
+The float hand-off, ``quantize_sym_codes``, launches the codes kernel of
+``csrc/fake_quant.cu``; its plain twin is ``quantize_sym_codes_plain``.
+
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors it
 launches the kernel or raises.  ``int8_matmul_dequant.launches`` counts kernel
 launches, and nothing else; ``launches_wgmma`` and ``launches_mma_sync`` count
@@ -56,7 +59,7 @@ import types
 import torch
 
 from ...utils.device import as_f32
-from . import build
+from . import build, fake_quant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
@@ -243,20 +246,23 @@ def fused_epilogue(acc, alpha, beta, fuse_relu: bool, out_dtype, *, out_scale=No
     """The int8 kernels' whole epilogue in plain PyTorch, as the serving path
     ran it before it was fused: ``dequant_epilogue``; with ``residual=(codes,
     scale)``, + the codes dequantized in ``out_dtype`` and then the ReLU; with
-    ``out_scale``, the result's codes (``quantize_sym_codes``)."""
+    ``out_scale``, the result's codes (``quantize_sym_codes_plain``)."""
     if residual is None:
         return requant_epilogue(dequant_epilogue(acc, alpha, beta, fuse_relu, out_dtype, shape),
-                                False, out_scale, out_bits, None, shape)
+                                False, out_scale, out_bits, None, shape,
+                                quantize=quantize_sym_codes_plain)
     return requant_epilogue(dequant_epilogue(acc, alpha, beta, False, out_dtype, shape),
-                            fuse_relu, out_scale, out_bits, residual, shape)
+                            fuse_relu, out_scale, out_bits, residual, shape,
+                            quantize=quantize_sym_codes_plain)
 
 
 def requant_epilogue(y, fuse_relu: bool, out_scale=None, out_bits: int = 8, residual=None,
-                     shape=(1, -1)):
+                     shape=(1, -1), *, quantize=None):
     """What the epilogue does past the float value ``y``: + the residual's
     codes dequantized in ``y``'s type, the ReLU (``fuse_relu``, applied only
     with a residual: without one ``y`` carries it), then the codes at
-    ``out_scale`` (one value, or one a column viewed as ``shape``)."""
+    ``out_scale`` (one value, or one a column viewed as ``shape``) by
+    ``quantize``, ``quantize_sym_codes`` where None."""
     if residual is not None:
         codes, scale = residual
         y = y + (codes.float() * as_f32(scale, y.device)).to(y.dtype)
@@ -265,7 +271,8 @@ def requant_epilogue(y, fuse_relu: bool, out_scale=None, out_bits: int = 8, resi
     if out_scale is None:
         return y
     s = as_f32(out_scale, y.device)
-    return quantize_sym_codes(y, s.view(shape) if s.numel() > 1 else s.reshape(()), out_bits)
+    return (quantize or quantize_sym_codes)(y, s.view(shape) if s.numel() > 1 else s.reshape(()),
+                                            out_bits)
 
 
 def int8_matmul_dequant_plain(a_q, b_q, alpha, beta=None, *, fuse_relu: bool = False,
@@ -288,10 +295,82 @@ def abs_max_scale(amax, bits: int) -> torch.Tensor:
     return torch.clamp_min(amax / as_f32(2.0 ** (bits - 1) - 1.0, amax.device), 1e-8)
 
 
+def _dense(x) -> bool:
+    """Whether ``x``'s elements fill its span of memory, in some order of its
+    dims, with no gap and no overlap (its memory order is then that of
+    ``torch.empty_strided(x.shape, x.stride())``)."""
+    span = 1
+    for stride, size in sorted((s, n) for s, n in zip(x.stride(), x.shape) if n != 1):
+        if stride != span:
+            return False
+        span *= size
+    return True
+
+
+def codes_layout(x, scale, bits: int = 8):
+    """``(channels, inner, per_channel)`` as the codes kernel reads ``x`` and
+    ``scale`` (element i of ``x``'s memory takes scale ``(i // inner) %
+    channels``), or None where it takes no such call: ``x`` float32 or
+    bfloat16, dense in memory in any order of its dims; ``scale`` a float32
+    tensor holding one value (of at most ``x``'s dims), or one a channel of
+    one dim of ``x`` (1 in every other dim, adjacent in memory: the grouped
+    and depthwise convs' ``scale.view(1, -1, 1, 1)``, a weight's ``[O, 1, 1,
+    1]``); a grid of 2 to 8 bits.  Reads no device."""
+    if (not isinstance(scale, torch.Tensor) or x.dtype not in _DTYPES
+            or scale.dtype != torch.float32 or not 2 <= bits <= 8 or not _dense(x)):
+        return None
+    if scale.numel() == 1:
+        return (1, 1, False) if scale.ndim <= x.ndim else None
+    dims = [d for d, n in enumerate(scale.shape) if n != 1]
+    if (scale.ndim != x.ndim or len(dims) != 1 or scale.shape[dims[0]] != x.shape[dims[0]]
+            or scale.stride(dims[0]) != 1):
+        return None
+    return x.shape[dims[0]], x.stride(dims[0]), True
+
+
+def codes_route(x, scale, bits: int = 8):
+    """None for ``x`` off the card, which ``quantize_sym_codes`` quantizes by
+    the plain composition; for a CUDA ``x``, dense in memory, the
+    ``codes_layout`` the kernel launches with, or ValueError where the kernel
+    takes no such call (``scale`` on another device included)."""
+    if x.device.type != 'cuda':
+        return None
+    layout = codes_layout(x, scale, bits)
+    if layout is None or scale.device != x.device:
+        what = (f'{scale.dtype} {tuple(scale.shape)} strides {scale.stride()} on {scale.device}'
+                if isinstance(scale, torch.Tensor) else type(scale).__name__)
+        raise ValueError(
+            f'the codes kernel takes float32 or bfloat16 x dense in memory and a float32 scale '
+            f'on its device, one value or one a channel of one dim, at 2-8 bits; got x '
+            f'{x.dtype} {tuple(x.shape)} strides {x.stride()}, scale {what}, {bits} bits')
+    return layout
+
+
 def quantize_sym_codes(x, scale, bits: int = 8) -> torch.Tensor:
     """int8 codes of ``x`` on the symmetric grid ``scale * [-qmax, qmax]``,
     qmax = 2^(bits-1) - 1, rounding half to even.  ``scale`` is a device
-    tensor that broadcasts against ``x``."""
+    tensor that broadcasts against ``x``.  On the CPU the plain composition
+    ``quantize_sym_codes_plain``; for a CUDA tensor one launch of the codes
+    kernel (``csrc/fake_quant.cu``), equal to it bit for bit, in ``x``'s
+    layout (a strided view is copied dense first), or an error where the
+    kernel takes no such call (``codes_route``).  ``.launches`` counts the
+    launches."""
+    if x.device.type == 'cuda' and not _dense(x):
+        x = x.contiguous()
+    layout = codes_route(x, scale, bits)
+    if layout is None:
+        return quantize_sym_codes_plain(x, scale, bits)
+    out = fake_quant.launch_codes(x, scale, qmax_of(bits), *layout)
+    quantize_sym_codes.launches += x.numel() > 0
+    return out
+
+
+quantize_sym_codes.launches = 0
+
+
+def quantize_sym_codes_plain(x, scale, bits: int = 8) -> torch.Tensor:
+    """The plain PyTorch version of ``quantize_sym_codes``: divide, round,
+    clamp, cast."""
     qmax = qmax_of(bits)
     return torch.clamp(torch.round(x.float() / scale), -qmax, qmax).to(torch.int8)
 

@@ -7,7 +7,7 @@ On the CPU the wrappers run the plain versions (``int_matmul.fused_epilogue``).
 They are held bit for bit to the elementwise ops the serving path ran after a
 float-out kernel before the features existed, spelled out here from
 ``dequant_epilogue``'s float output, ``QTensor.dequant`` and
-``quantize_sym_codes``; whole serving forwards are held bit for bit to that
+``quantize_sym_codes_plain``; whole serving forwards are held bit for bit to that
 path's block orchestration, spelled out here as well; the counters show where
 the features engage.  The ``cuda`` test holds each tensor-core route's
 epilogue to the plain version on the card.  This file imports no JAX, so the
@@ -27,7 +27,7 @@ from cnn_quantization_tpu_torch.models.googlenet import BasicConv2d
 from cnn_quantization_tpu_torch.models.layers import QConv, QLinear, QTensor, relu
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
-from cnn_quantization_tpu_torch.ops.kernels.int_matmul import quantize_sym_codes
+from cnn_quantization_tpu_torch.ops.kernels.int_matmul import quantize_sym_codes_plain
 from cnn_quantization_tpu_torch.utils import spans
 
 SIZE = 64
@@ -61,7 +61,8 @@ def _elementwise(y, fuse_relu, out_scale, bits, residual, shape):
         if fuse_relu:
             y = relu(y)
     if out_scale is not None:
-        y = quantize_sym_codes(y, out_scale.view(shape) if out_scale.ndim else out_scale, bits)
+        y = quantize_sym_codes_plain(y, out_scale.view(shape) if out_scale.ndim else out_scale,
+                                     bits)
     return y
 
 
@@ -124,11 +125,11 @@ def _elementwise_forward(self, x, ctx):
     blocks = [blk for li in range(self.stages) for blk in getattr(self, f'layer{li + 1}')]
     y = relu(self.conv1(x.to(self.dtype), ctx))
     s = scales[blocks[0].spec.conv_sites[0][0].id]
-    y = self.maxpool(QTensor(quantize_sym_codes(y, s, bits), s), ctx)
+    y = self.maxpool(QTensor(quantize_sym_codes_plain(y, s, bits), s), ctx)
     for blk in blocks:
         sp = blk.spec
         s = scales[sp.conv_sites[0][0].id]
-        q = y if isinstance(y, QTensor) else QTensor(quantize_sym_codes(y, s, bits), s)
+        q = y if isinstance(y, QTensor) else QTensor(quantize_sym_codes_plain(y, s, bits), s)
         convs = [blk.conv1, blk.conv2] + ([blk.conv3] if sp.bottleneck else [])
         out = convs[0](q, ctx)
         for conv in convs[1:]:
@@ -137,7 +138,7 @@ def _elementwise_forward(self, x, ctx):
         if sp.has_downsample:
             s_out = scales[sp.ds_sites[0].id + ':out']
             d = blk.downsample[0](q, ctx)
-            identity = QTensor(quantize_sym_codes(d, s_out), s_out).dequant(sp.dtype)
+            identity = QTensor(quantize_sym_codes_plain(d, s_out), s_out).dequant(sp.dtype)
         y = relu(out + identity)
     y = self.avgpool(y, ctx)
     return self.fc(y.flatten(1), ctx).float()

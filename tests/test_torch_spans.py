@@ -240,9 +240,12 @@ def test_serving_forward_counts_launches_by_route():
     # downsamples on the conv kernel, the classifier on the GEMM
     by_kernel = collections.Counter()
     for key, n in f.counts.items():
-        if key.split('.')[1] not in ('codes_out', 'residual_in', 'float_in_bytes'):
+        if key.split('.')[1] not in ('codes_out', 'residual_in', 'float_in_bytes') \
+                and not key.startswith('quantize_codes.'):
             by_kernel[key.split('.')[0]] += n
     assert by_kernel == {'int8_conv': 19, 'int8_gemm': 1}
+    # the float hand-off's codes kernel: the stem output and the classifier's input
+    assert f.counts['quantize_codes.launches'] == 2
     assert by_kernel['int8_conv'] == ic.int8_conv_dequant.launches - convs
     assert by_kernel['int8_gemm'] == im.int8_matmul_dequant.launches - gemms
     assert f.counts['int8_gemm.wgmma'] == 1    # K = 512
