@@ -144,6 +144,7 @@ from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
 from cnn_quantization_tpu_torch.ops.kernels import stream_copy as sc
 from cnn_quantization_tpu_torch.ops.quant_math import affine_qparams
+from cnn_quantization_tpu_torch.utils import counters
 from cnn_quantization_tpu_torch.utils.device import card_name_and_power
 from cnn_quantization_tpu_torch.utils.profiling import device_ms as cuda_ms
 from cnn_quantization_tpu_torch.utils.profiling import (cost_analysis, count_work,
@@ -402,7 +403,7 @@ def drive_main_path(device, *, arch='resnet50', size=224, batch=64, eval_batches
     # columns of -sm collect), one per site and forward
     predicted = n_weights + 3 * len(sites) * 2 + len(sites) * (eval_batches + 1)
 
-    fq.fake_quant_fused.launches = 0
+    mark = counters.snapshot()
     t0 = time.perf_counter()
     params_q = engine.quantize_params(params)
     summary = collect_statistics(engine.make_collect(err_bits=4), params, batches[:2])
@@ -417,7 +418,7 @@ def drive_main_path(device, *, arch='resnet50', size=224, batch=64, eval_batches
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = fq.fake_quant_fused.launches
+    launches = launched_since(mark)['fake_quant']
 
     round_trip = all(np.array_equal(stats[s][k], summary[s][k]) for s in summary
                      for k in summary[s])
@@ -497,27 +498,33 @@ def bf16_over_one_ulp(got, want):
     return int(((got - want).abs() > want.abs() * 2.0 ** -7 + 1e-30).sum())
 
 
-ROUTE_COUNTERS = {   # route_launches' key: (wrapper, its counter)
-    'wgmma': (im.int8_matmul_dequant, 'launches_wgmma'),
-    'mma_sync': (im.int8_matmul_dequant, 'launches_mma_sync'),
-    'depthwise': (ic.int8_conv_dequant, 'launches_depthwise'),
-    'im2col_wgmma': (ic.int8_conv_dequant, 'launches_im2col_wgmma'),
-    'implicit_gemm': (ic.int8_conv_dequant, 'launches_implicit_gemm'),
-    'int4_wgmma': (i4.int4_matmul, 'launches_wgmma'),
-    'int4_mma_sync': (i4.int4_matmul, 'launches_mma_sync'),
+ROUTES = {   # route_launches' key: its counter in utils/counters
+    'wgmma': 'int8_gemm.wgmma', 'mma_sync': 'int8_gemm.mma_sync',
+    'depthwise': 'int8_conv.depthwise', 'im2col_wgmma': 'int8_conv.im2col_wgmma',
+    'implicit_gemm': 'int8_conv.implicit_gemm',
+    'int4_wgmma': 'int4_gemm.wgmma', 'int4_mma_sync': 'int4_gemm.mma_sync',
 }
 
 
-def route_launches():
-    """Launches by route: the int8 GEMM's TMA + wgmma and mma.sync kernels,
-    the int8 conv's direct depthwise, TMA im2col + wgmma and implicit-GEMM
-    kernels, the int4 GEMM's TMA + wgmma and mma.sync kernels."""
-    return Counter({key: getattr(fn, attr) for key, (fn, attr) in ROUTE_COUNTERS.items()})
+def route_launches(mark):
+    """Launches by route since the store's snapshot ``mark``: the int8 GEMM's
+    TMA + wgmma and mma.sync kernels, the int8 conv's direct depthwise, TMA
+    im2col + wgmma and implicit-GEMM kernels, the int4 GEMM's TMA + wgmma and
+    mma.sync kernels."""
+    moved = counters.since(mark)
+    return Counter({key: moved.get(name, 0) for key, name in ROUTES.items()})
 
 
-def reset_route_launches():
-    for fn, attr in ROUTE_COUNTERS.values():
-        setattr(fn, attr, 0)
+def launched_since(mark):
+    """Launches of each of the five kernels since the store's snapshot
+    ``mark``."""
+    return Counter(counters.by_kernel(counters.since(mark)))
+
+
+def kernel_launches(mark):
+    """(int4 GEMM, int8 GEMM, int8 conv) launches since ``mark``."""
+    k = launched_since(mark)
+    return k['int4_gemm'], k['int8_gemm'], k['int8_conv']
 
 
 def int8_kernels_vs_plain(device):
@@ -528,7 +535,7 @@ def int8_kernels_vs_plain(device):
     gen = torch.Generator().manual_seed(1)
     gemm_err, conv_err, bf16_over = {}, {}, 0
     routes = {}
-    before = route_launches()
+    mark = counters.snapshot()
     for m, k, n in GEMM_SHAPES:
         for qmax in (127, 7):
             a, b, alpha, beta = gemm_case(m, k, n, qmax, gen, device)
@@ -560,7 +567,7 @@ def int8_kernels_vs_plain(device):
                 else:
                     bf16_over += bf16_over_one_ulp(got, want)
     torch.cuda.synchronize()
-    launched = route_launches() - before
+    launched = +route_launches(mark)
     emit('int8_kernels_vs_plain', gemm_max_abs_err_fp32=gemm_err,
          conv_max_abs_err_fp32=conv_err, bf16_elements_over_one_ulp=bf16_over, routes=routes,
          route_launches=launched)
@@ -684,17 +691,15 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
             sp, None, images)
         return bool(torch.isfinite(logits).all()) and logits.shape == (batch, 1000), aux
 
-    im.int8_matmul_dequant.launches = 0
-    ic.int8_conv_dequant.launches = 0
-    reset_route_launches()
+    mark = counters.snapshot()
     t0 = time.perf_counter()
     eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
     pq = eng.quantize_params(params)
     sp = eng.prepare_serving_params(pq)
     scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max')
-    im.quantize_sym_codes.launches = 0
+    codes_mark = counters.snapshot()
     res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales)
-    codes_launches = im.quantize_sym_codes.launches
+    codes_launches = counters.since(codes_mark).get('quantize_codes.launches', 0)
     finite = {}
     aciq = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='aciq')
     finite['aciq'], _ = serve(eng, sp, aciq)
@@ -707,9 +712,8 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     finite['dynamic'], recorded = serve(eng, sp, None)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    gemm_launches = im.int8_matmul_dequant.launches
-    conv_launches = ic.int8_conv_dequant.launches
-    routes = route_launches()
+    _, gemm_launches, conv_launches = kernel_launches(mark)
+    routes = route_launches(mark)
 
     # 2 calibration forwards per freeze; the s2d stem adds one conv launch
     forwards = (2 + eval_batches) + (2 + 1) + (2 + 1) + 1
@@ -772,13 +776,13 @@ def kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=False, to
     torch.backends.cudnn.benchmark = False
     fwd = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=packed)
     kern, _ = fwd(sp, None, images)
-    launched = kernel_launches()
+    mark = counters.snapshot()
     with mock.patch.object(i4, 'int4_matmul', i4.int4_matmul_plain), \
             mock.patch.object(im, 'int8_matmul_dequant', im.int8_matmul_dequant_plain), \
             mock.patch.object(ic, 'int8_conv_dequant', ic.int8_conv_dequant_plain):
         plain, _ = fwd(sp, None, images)
     out = dict(rel_err=rel_err(kern, plain),
-               plain_run_launched_no_kernel=launched == kernel_launches(),
+               plain_run_launched_no_kernel=not any(kernel_launches(mark)),
                argmax_equal=bool(torch.equal(kern.argmax(-1), plain.argmax(-1))))
     emit(phase, **out)
     check(out['argmax_equal'] and out['rel_err'] <= tol and out['plain_run_launched_no_kernel'],
@@ -975,8 +979,8 @@ def quantize_codes_timing(device, card):
 
 def codes_row(srep, rows):
     """The ``kernels`` line's row of the float hand-off's codes kernel: its
-    launches in the serving path's frozen evaluation, counted from 0 (a CUDA
-    call launches it or raises), and ``quantize_codes_timing``'s first shape.
+    launches in the serving path's frozen evaluation (a CUDA call launches it
+    or raises), and ``quantize_codes_timing``'s first shape.
     Held to the plain composition bit for bit, so no error."""
     t = rows[0]
     return {'name': 'quantize_codes', 'route': 'cuda',
@@ -1025,7 +1029,7 @@ def int4_kernel_vs_plain(device):
     one ulp; and the pack/unpack round trip on the card."""
     gen = torch.Generator().manual_seed(3)
     errs, bf16_over, routes = {}, 0, {}
-    before = route_launches()
+    mark = counters.snapshot()
     for name in INT4_CASES:
         args, kw = int4_case(name, gen, device)
         want = i4.int4_matmul_plain(*args, **kw)
@@ -1043,7 +1047,7 @@ def int4_kernel_vs_plain(device):
             errs[name] = max(errs.get(name, 0.0), err)
             check(torch.equal(got, want),
                   f'int4 GEMM != plain in {name} ({route or routes[name]}): max abs {err}')
-    launched = route_launches() - before
+    launched = +route_launches(mark)
     codes = int8_codes((4096, 512), 7, gen, device)
     raw = torch.randint(-128, 128, (4096, 256), generator=gen, dtype=torch.int8).to(device)
     round_trip = bool(torch.equal(i4.unpack_int4(i4.pack_int4(codes)), codes)
@@ -1064,21 +1068,15 @@ def im2col_vs_implicit(device):
     gen = torch.Generator().manual_seed(4)
     (x, w, w_scale, bias), kw = conv_case('3x3_s1_c64', 7, gen, device)
     kw.pop('groups')
-    launched = im.int8_matmul_dequant.launches, ic.int8_conv_dequant.launches
+    mark = counters.snapshot()
     explicit = ic.int8_conv_im2col(x, w, w_scale, bias, fuse_relu=True, **kw)
     implicit = ic.int8_conv(x, w, w_scale, bias, fuse_relu=True, **kw)
     torch.cuda.synchronize()
-    through = (im.int8_matmul_dequant.launches - launched[0],
-               ic.int8_conv_dequant.launches - launched[1])
+    through = kernel_launches(mark)[1:]
     equal = bool(torch.equal(explicit, implicit))
     emit('im2col_vs_implicit_conv', shape='3x3_s1_c64', equal=equal,
          gemm_and_conv_launches=list(through))
     check(equal and through == (1, 1), 'im2col + int8 GEMM != implicit-GEMM int8 conv')
-
-
-def kernel_launches():
-    return (i4.int4_matmul.launches, im.int8_matmul_dequant.launches,
-            ic.int8_conv_dequant.launches)
 
 
 def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batches=4):
@@ -1101,33 +1099,30 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
                                      packed=packed)(sp, None, images)
         return logits
 
-    i4.int4_matmul.launches = 0
-    im.int8_matmul_dequant.launches = 0
-    ic.int8_conv_dequant.launches = 0
-    reset_route_launches()
+    mark = counters.snapshot()
     t0 = time.perf_counter()
     eng = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
     sp = eng.prepare_serving_params(eng.quantize_params(params))
     scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max', packed=True)
-    after_freeze = kernel_launches()
+    after_freeze = kernel_launches(mark)
     res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales, packed=True)
-    after_eval = kernel_launches()
+    after_eval = kernel_launches(mark)
     finite, per_forward = {}, {}
     for name, packed in (('stage_1', (1,)), ('stages_2_3', (2, 3))):
-        before = kernel_launches()
+        before = kernel_launches(mark)
         logits = forward(scales, packed)
         finite[name] = bool(torch.isfinite(logits).all()) and logits.shape == (batch, 1000)
-        per_forward[name] = [b - a for a, b in zip(before, kernel_launches())]
+        per_forward[name] = [b - a for a, b in zip(before, kernel_launches(mark))]
     no_packed_keys = {k: v for k, v in scales.items() if not k.endswith(':out:packed')}
-    before = kernel_launches()
+    before = kernel_launches(mark)
     fallback = forward(no_packed_keys, True)
-    per_forward['fallback'] = [b - a for a, b in zip(before, kernel_launches())]
+    per_forward['fallback'] = [b - a for a, b in zip(before, kernel_launches(mark))]
     fallback_equals_plain = bool(torch.equal(fallback, forward(no_packed_keys, False)))
     finite['fallback'] = bool(torch.isfinite(fallback).all())
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launches = kernel_launches()
-    route_counts = route_launches()
+    launches = kernel_launches(mark)
+    route_counts = route_launches(mark)
 
     # 2 dynamic calibration forwards and the 2 fallback forwards run plain
     forwards = {(): 2 + 2, all_stages: eval_batches, (1,): 1, (2, 3): 1}
@@ -1492,7 +1487,7 @@ def bench_calls_vs_plain(device):
     data: the whole bench (ResNet-50 bfloat16 at batch 128, its calibration
     batches, the sweep at 64 and 256, MobileNet-v2, the probes) runs once with
     ``HeldToPlain`` active, its printed lines discarded.  This run comes
-    before the counts are set to 0 for ``bench_path`` and its times are not
+    before ``bench_path`` starts its count of launches and its times are not
     read.  Returns the worst float32 or integer difference by kernel."""
     held = HeldToPlain()
     t0 = time.perf_counter()
@@ -1530,8 +1525,8 @@ def forward_kinds(counts):
 
 def bench_path(device, card):
     """The throughput bench through its entry point (``bench.run``) at full
-    width: ResNet-50 and MobileNet-v2, 224x224, batch 128, bfloat16.  Every
-    launch count is set to 0 just before and read just after; the forwards'
+    width: ResNet-50 and MobileNet-v2, 224x224, batch 128, bfloat16.  The
+    launches are counted from just before to just after; the forwards'
     launches are held against the models' site tables (forwards counted by
     kind as they run), the probes' against what each probe is."""
     tables, routes, n_weights, n_sites, depthwise = {}, {}, {}, {}, 0
@@ -1554,18 +1549,15 @@ def bench_path(device, card):
         weight_passes[kind] = weight_passes.get(kind, 0) + 1
         return quantize_params(self, params)
 
-    for wrapper in (fq.fake_quant_fused, im.int8_matmul_dequant, ic.int8_conv_dequant,
-                    i4.int4_matmul, sc.stream_copy):
-        wrapper.launches = 0
-    reset_route_launches()
+    mark = counters.snapshot()
     t0 = time.perf_counter()
     with mock.patch.object(torch.func, 'functional_call', forward_kinds(forwards)), \
             mock.patch.object(QuantEngine, 'quantize_params', counting_quantize_params):
         headline, by_section = bench.run(batch=BENCH_BATCH, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bench.kernel_launches()
-    route_counts = route_launches()
+    launches = counters.by_kernel(counters.since(mark))
+    route_counts = route_launches(mark)
 
     predicted = dict.fromkeys(launches, 0)
     # the int8-rate probe's product has K = 16384: the TMA + wgmma route
@@ -1748,15 +1740,10 @@ def predicted_weight_modes(policy, params):
     return modes
 
 
-def times_counter(counter, n):
-    return Counter({k: v * n for k, v in counter.items()})
-
-
 @contextlib.contextmanager
 def cli_instrumented():
     """Counts the fake-quant kernel's launches by mode and records the logits
-    of every forward made (the CLI's, or a phase's own); the wrapper's own
-    counter is set to 0."""
+    of every forward made (the CLI's, or a phase's own)."""
     modes, logits = Counter(), []
     real_launch, real_make_forward = fq.launch, QuantEngine.make_forward
 
@@ -1773,7 +1760,6 @@ def cli_instrumented():
             return out, aux
         return recording
 
-    fq.fake_quant_fused.launches = 0
     with mock.patch.object(fq, 'launch', launch), \
             mock.patch.object(QuantEngine, 'make_forward', make_forward):
         yield modes, logits
@@ -1785,6 +1771,7 @@ def cli_run(argv):
     mode) and wall seconds."""
     from cnn_quantization_tpu_torch.cli import inference_sim
     buf = io.StringIO()
+    mark = counters.snapshot()
     with cli_instrumented() as (modes, logits), contextlib.redirect_stdout(buf):
         t0 = time.perf_counter()
         rc = inference_sim.main(argv)
@@ -1794,7 +1781,7 @@ def cli_run(argv):
     check(rc == 0, f'inference_sim {argv}: exit {rc}')
     res = json.loads(lines[-1]) if lines and lines[-1].startswith('{') else None
     return dict(lines=lines, res=res, logits=logits, modes=modes, wall_s=wall,
-                launches=fq.fake_quant_fused.launches)
+                launches=launched_since(mark)['fake_quant'])
 
 
 def read_csv(path):
@@ -1885,7 +1872,7 @@ def cli_path(device, card, arch='resnet50', size=224, batch=CLI_BATCH):
         run = cli_run(kld_use)
         check(f'Froze qparams for {len(sites)} sites' in run['lines'], 'not every KLD site froze')
         held('kld_use_frozen', run, predicted_weight_modes(policy, params)
-             + times_counter(Counter(affine=len(sites)), 2))
+             + times(Counter(affine=len(sites)), 2))
         # -me keeps the entropy-measuring sites dynamic: the KLD branch through
         # the kernel's reference_per_tensor mode, each call held to the plain version
         hold = dict(calls=0, max_abs_err=0.0)
@@ -1920,7 +1907,7 @@ def cli_path(device, card, arch='resnet50', size=224, batch=CLI_BATCH):
         check(sum(per_forward.values()) == len(sites) - activation_sites - 1,
               f'mid-tread: activation sites would launch fake-quant: {per_forward}')
         entry = held('mid_tread', run, predicted_weight_modes(policy, params)
-                     + times_counter(per_forward, 2))
+                     + times(per_forward, 2))
         entry['avg_entropy'] = run['res']['avg_entropy']
         check(0.0 < entry['avg_entropy'] <= 4.0, f"mid-tread entropy {entry['avg_entropy']}")
 
@@ -1935,7 +1922,7 @@ def cli_path(device, card, arch='resnet50', size=224, batch=CLI_BATCH):
             runs[name] = cli_run(base + headline + extra)
             p = policy if '-s' in extra else dataclasses.replace(policy, stochastic=False)
             held(name, runs[name], predicted_weight_modes(p, params)
-                 + times_counter(predicted_site_modes(p, sites), 2))
+                 + times(predicted_site_modes(p, sites), 2))
         same = all(torch.equal(a, b) for a, b in zip(runs['stochastic_seed1']['logits'],
                                                      runs['stochastic_seed1_again']['logits']))
         other = any(not torch.equal(a, b) for a, b in zip(runs['stochastic_seed1']['logits'],
@@ -2012,6 +1999,7 @@ def zoo_simulation(device, arch, size, batch):
     eng = QuantEngine(model, policy, meta)
     sites = discover_sites(model, (1, 3, size, size))
     batches = list(synthetic_batches(batch, 3, size=size, seed=12345))
+    mark = counters.snapshot()
     with cli_instrumented() as (modes, _):
         t0 = time.perf_counter()
         params_q = eng.quantize_params(params)
@@ -2024,13 +2012,13 @@ def zoo_simulation(device, arch, size, batch):
     # one launch a weight; three error columns a site for the statistics
     # batch; one launch a site and evaluation batch, by its frozen mode
     predicted = (predicted_weight_modes(policy, params) + Counter(affine=3 * len(sites))
-                 + times_counter(predicted_site_modes(policy, sites, summary, frozen=qparams), 2))
+                 + times(predicted_site_modes(policy, sites, summary, frozen=qparams), 2))
     report = dict(sites=len(sites), frozen_sites=len(qparams), launches=dict(modes),
                   predicted_launches=dict(predicted), weight_launches=dict(weight_modes),
                   top1=res['top1'], top5=res['top5'], loss=res['loss'],
                   images_per_sec=res['images_per_sec'], wall_s=wall)
     check(sum(modes.values()) > 0 and modes == predicted
-          and fq.fake_quant_fused.launches == sum(predicted.values()),
+          and launched_since(mark)['fake_quant'] == sum(predicted.values()),
           f'{arch} simulation: fake-quant launches {dict(modes)}, predicted {dict(predicted)}')
     check(np.isfinite([res['top1'], res['top5'], res['loss']]).all(),
           f'{arch} simulation: non-finite result {res}')
@@ -2046,22 +2034,21 @@ def zoo_serving(device, arch, size, batch):
     eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
     batches = list(synthetic_batches(batch, 3, size=size, seed=12345))
     per_forward = route_table(model)
-    gemm, conv = ROUTE_COUNTERS['wgmma'][0], ROUTE_COUNTERS['depthwise'][0]   # the wrappers
-    reset_route_launches()
-    gemm.launches = conv.launches = 0
+    mark = counters.snapshot()
     t0 = time.perf_counter()
     sp = eng.prepare_serving_params(eng.quantize_params(dict(model.state_dict())))
     scales = eng.freeze_serving_scales(sp, batches[:1], max_batches=1, mode='max')
     res = evaluate(eng, sp, batches[1:], quantized='serving_int8', act_scales=scales)
     torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
-    launched = route_launches()
+    launched = route_launches(mark)
+    _, gemm_launches, conv_launches = kernel_launches(mark)
     predicted = times(per_forward, 3)   # one calibration forward, two evaluated
     kinds = Counter(kind for kind, _ in serving_launches(model))
     report = dict(gemm_per_forward=kinds['int8_gemm'], conv_per_forward=kinds['int8_conv'],
                   routes_per_forward=dict(per_forward), route_launches=dict(+launched),
                   predicted_route_launches=dict(predicted),
-                  gemm_launches=gemm.launches, conv_launches=conv.launches,
+                  gemm_launches=gemm_launches, conv_launches=conv_launches,
                   frozen_sites=len(scales),
                   vector_scales=sum(1 for v in scales.values() if np.ndim(v) == 1),
                   top1=res['top1'], top5=res['top5'], loss=res['loss'],
@@ -2092,7 +2079,7 @@ def zoo_cli(device, size=224, extra=()):
     with tempfile.TemporaryDirectory() as home, contextlib.chdir(home), \
             mock.patch.dict(os.environ, {'HOME': home}):
         run = cli_run(ZOO_CLI + list(extra))
-    predicted = predicted_weight_modes(policy, params) + times_counter(
+    predicted = predicted_weight_modes(policy, params) + times(
         predicted_site_modes(policy, sites), 2)
     res = run['res']
     report = dict(argv=' '.join(ZOO_CLI + list(extra)), launches=dict(run['modes']),
@@ -2193,7 +2180,7 @@ def data_path(device, card, arch='resnet50', size=224, batch=64, n_images=DATA_I
                                         f'{arch}.npz'))
         engine = QuantEngine(model, policy, meta)
         qparams = engine.freeze_qparams(stats, input_shape=(1, size, size, 3))
-        predicted_use = predicted_weight_modes(policy, params) + times_counter(
+        predicted_use = predicted_weight_modes(policy, params) + times(
             predicted_site_modes(policy, sites, stats, frozen=qparams), n_batches)
         check(use['modes'] == predicted_use and use['launches'] == sum(predicted_use.values())
               and len(qparams) == len(sites),
@@ -2273,9 +2260,6 @@ def route_calls():
                             strides=tuple(strides), padding=tuple(padding))] += 1
         return conv(x, w, *args, strides=strides, padding=padding, groups=groups, **kw)
 
-    # the stand-ins share the wrappers' attributes: the kernels count their
-    # launches on the module-level name, which is the stand-in meanwhile
-    gemm_call.__dict__, conv_call.__dict__ = gemm.__dict__, conv.__dict__
     with mock.patch.object(im, 'int8_matmul_dequant', gemm_call), \
             mock.patch.object(ic, 'int8_conv_dequant', conv_call):
         yield calls
@@ -2322,7 +2306,7 @@ def parallel_worker(argv):
     for stem, s2d in (('s2d_stem', True), ('float_stem', False)):
         model, eng, sp, scales, batches = parallel_setup(device, arch, int(size), int(batch),
                                                          s2d)
-        reset_route_launches()
+        mark = counters.snapshot()
         with route_calls() as calls:
             t0 = time.perf_counter()
             res = evaluate_sharded(eng, sp, batches, mesh=mesh, quantized='serving_int8',
@@ -2331,7 +2315,7 @@ def parallel_worker(argv):
         table = serving_routes_from_params(model, shard_params(sp, mesh, model))
         result[stem] = dict(top1=res['top1'], top5=res['top5'], loss=res['loss'],
                             logits=res['logits'].cpu().numpy(), wall_s=wall,
-                            launches=dict(+route_launches()), calls=dict(calls),
+                            launches=dict(+route_launches(mark)), calls=dict(calls),
                             predicted=dict(times(table, len(batches))))
         if s2d:
             mine = shard_params(sp, mesh, model)
@@ -2391,7 +2375,6 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
                                                              save_params_sharded)
     report = dict(arch=arch, input_size=size, batch=batch, batches=PARALLEL_BATCHES)
     launches = Counter()
-    fq.fake_quant_fused.launches = 0
 
     # (a) one rank, in process
     backend = 'nccl' if device.type == 'cuda' else 'gloo'
@@ -2416,13 +2399,13 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
                 kw = dict(quantized='serving_int8', act_scales=scales)
             with cli_instrumented() as (_, single_logits):
                 single = evaluate(run_eng, run_params, batches[1:], **kw)
-            fq.fake_quant_fused.launches = 0
-            reset_route_launches()
+            mark = counters.snapshot()
             t0 = time.perf_counter()
             sharded = evaluate_sharded(run_eng, run_params, batches[1:], mesh=mesh,
                                        keep_logits=True, **kw)
             wall = time.perf_counter() - t0
-            counted = Counter(fake_quant=fq.fake_quant_fused.launches, **route_launches())
+            counted = Counter(fake_quant=launched_since(mark)['fake_quant'],
+                              **route_launches(mark))
             same = torch.equal(sharded['logits'], torch.cat(single_logits))
             runs[name] = dict(top1=sharded['top1'], top5=sharded['top5'], loss=sharded['loss'],
                               logits_equal=same, wall_s=wall,
@@ -2441,11 +2424,11 @@ def parallel_path(device, card, arch='resnet50', size=224, batch=64):
             loaded = load_params_sharded(path, mesh, model, device=device)
             load_s = time.perf_counter() - t0
             nbytes = dir_bytes(path)
-        reset_route_launches()
+        mark = counters.snapshot()
         fwd = run_eng.make_forward(quantized='serving_int8', act_scales=kw['act_scales'])
         before, _ = fwd(run_params, None, batches[1][0])
         after, _ = fwd(loaded, None, batches[1][0])
-        launches += route_launches()
+        launches += route_launches(mark)
         report['checkpoint_one_rank'] = ckpt = dict(
             entries=len(loaded), bytes_written=nbytes, save_s=save_s, load_s=load_s,
             entries_equal=same_tree(loaded, run_params),
@@ -2603,6 +2586,7 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
                                               '--input_size', str(golden_size),
                                               '--subset', str(golden_batch)])):
             out = os.path.join(home, f'golden_{name}.json')
+            mark = counters.snapshot()
             with cli_instrumented() as (modes, logits), \
                     contextlib.redirect_stdout(io.StringIO()):
                 t0 = time.perf_counter()
@@ -2611,15 +2595,16 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
                 wall = time.perf_counter() - t0
             with open(out) as f:
                 rows = json.load(f)
+            fq_launches = launched_since(mark)['fake_quant']
             golden[name] = dict(rc=rc, wall_s=wall, configs=[r['config'] for r in rows],
                                 launches=dict(modes), forwards=len(logits),
                                 rows=[{k: r[k] for k in ('config', 'top1', 'top5', 'verdict')}
                                       for r in rows])
             check(rc == 0 and all(np.isfinite([r['top1'], r['top5']]).all() for r in rows)
-                  and sum(modes.values()) == fq.fake_quant_fused.launches > 0
+                  and sum(modes.values()) == fq_launches > 0
                   and all(bool(torch.isfinite(t).all()) for t in logits),
                   f'golden_repro {name}: {golden[name]}')
-            launches['fake_quant'] += fq.fake_quant_fused.launches
+            launches['fake_quant'] += fq_launches
         check(golden['smoke']['configs'] == [g[0] for g in golden_repro.GOLDEN],
               f"golden smoke ran {golden['smoke']['configs']}")
         report['golden'] = golden
@@ -2632,10 +2617,10 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
     x.requires_grad_(True)
     grad_out = torch.randn(ste_shape, generator=gen).to(device) \
         .contiguous(memory_format=torch.channels_last)
-    fq.fake_quant_fused.launches = 0
+    mark = counters.snapshot()
     out = fake_quant_ste(x, delta, offset, qmax, channel_dim=1)
     out.backward(grad_out)
-    ste_launches = fq.fake_quant_fused.launches
+    ste_launches = launched_since(mark)['fake_quant']
     want = fq.fake_quant_fused_plain(x.detach(), delta, offset, qmax, channel_dim=1)
     mask = fake_quant_ste_mask(x.detach(), delta, offset, channel_dim=1)
     fwd_err = float((out.detach() - want).abs().max())
@@ -2656,7 +2641,7 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
                                                       False)
     fwd = eng8.make_forward(quantized='serving_int8', act_scales=scales)
     images = batches[0][0]
-    reset_route_launches()
+    mark = counters.snapshot()
     t0 = time.perf_counter()
     cost = cost_analysis(fwd, sp, None, images)
     sync()
@@ -2665,11 +2650,11 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
     report['cost_analysis'] = cost_rep = dict(
         batch=golden_batch, input_size=golden_size, flops=cost['flops'],
         bytes_accessed=cost['bytes accessed'], count_work_ops=ops, count_work_bytes=nbytes,
-        seconds=cost_s, launches=dict(+route_launches()),
+        seconds=cost_s, launches=dict(+route_launches(mark)),
         predicted=dict(times(route_table(model), 2)))
     check(cost['flops'] == ops > 0 and cost_rep['launches'] == cost_rep['predicted'],
           f'cost_analysis against count_work: {cost_rep}')
-    launches += route_launches()
+    launches += route_launches(mark)
     report['launches'] = dict(launches)
     emit('tools_path', card=card, **report)
     return report
@@ -2725,8 +2710,8 @@ def resume_path(device, card, arch='resnet50', size=224, batch=64):
     checkpoint_every=)``) under two recipes, the W4A4 headline with frozen
     qparams (the fake-quant kernel at every site) and W8A8 serving with
     frozen scales (the int8 GEMM and conv): ``RESUME_BATCHES`` seeded batches
-    from the host, each recipe run three times, every kernel count from 0 per
-    run: uninterrupted (no file, no read of a device value inside the loop);
+    from the host, each recipe run three times, every kernel's launches counted
+    per run: uninterrupted (no file, no read of a device value inside the loop);
     interrupted, its loader raising when asked for batch ``RESUME_FAIL_AT``
     with a checkpoint every ``RESUME_EVERY`` batches (the file then holds the
     batches before the last checkpoint; the loop reads the four device sums
@@ -2734,10 +2719,6 @@ def resume_path(device, card, arch='resnet50', size=224, batch=64):
     uninterrupted run's, the loss within 1e-6 relative, the file removed,
     launches for the batches it ran and none for those it skipped).  The host
     reads are counted in the first two runs only; the third is timed bare."""
-    wrappers = {'fake_quant': fq.fake_quant_fused, 'int8_gemm': im.int8_matmul_dequant,
-                'int8_conv': ic.int8_conv_dequant}
-    for fn in wrappers.values():
-        fn.launches = 0
     model, meta = build_model(arch, device=device, seed=0)
     params = dict(model.state_dict())
     calib, *batches = synthetic_batches(batch, RESUME_BATCHES + 1, size=size, seed=4242)
@@ -2769,8 +2750,7 @@ def resume_path(device, card, arch='resnet50', size=224, batch=64):
                 reads = HostReads()
                 loader, marks = preemptible(batches, reads,
                                             RESUME_FAIL_AT if run == 'interrupted' else None)
-                for fn in wrappers.values():
-                    fn.launches = 0
+                mark = counters.snapshot()
                 res = None
                 t0 = time.perf_counter()
                 with reads if run != 'resumed' else contextlib.nullcontext():
@@ -2780,7 +2760,7 @@ def resume_path(device, card, arch='resnet50', size=224, batch=64):
                     except Preempted:
                         pass
                 sync()
-                counted = Counter({k: fn.launches for k, fn in wrappers.items()})
+                counted = launched_since(mark)
                 runs[run] = entry = dict(wall_s=time.perf_counter() - t0,
                                          launches=dict(+counted), file_left=os.path.exists(path),
                                          predicted=dict(times(per_forward, ran[run])))
@@ -2910,7 +2890,7 @@ def ordering_predictions(model, params, policy, serving, n_batches, cal_batches)
     if serving:
         return modes, times(route_table(model), cal_batches + n_batches)
     sites = discover_sites(model, (1, 3, ORDERING_SIZE, ORDERING_SIZE))
-    return modes + times_counter(predicted_site_modes(policy, sites), n_batches), Counter()
+    return modes + times(predicted_site_modes(policy, sites), n_batches), Counter()
 
 
 def accuracy_path(device, card, steps=1000, n_test=2048, batch=256, draws=16):
@@ -2942,8 +2922,6 @@ def accuracy_path(device, card, steps=1000, n_test=2048, batch=256, draws=16):
     params = {k: v.detach() for k, v in model.state_dict().items()}
     n_batches = -(-n_test // batch)
     cal_batches = min(n_batches, 4)   # freeze_serving_scales' max_batches
-    wrappers = {'fake_quant': fq.fake_quant_fused, 'int8_gemm': im.int8_matmul_dequant,
-                'int8_conv': ic.int8_conv_dequant}
     report = dict(arch=ORDERING_ARCH, input_size=ORDERING_SIZE, eval_batch=batch,
                   images=n_test, train=train, configs={}, cpu={})
     launches = Counter()
@@ -2956,9 +2934,6 @@ def accuracy_path(device, card, steps=1000, n_test=2048, batch=256, draws=16):
         def run_cli(name, dev):
             with tempfile.TemporaryDirectory(dir=tmp) as home, contextlib.chdir(home), \
                     mock.patch.dict(os.environ, {'HOME': home}):
-                for fn in wrappers.values():
-                    fn.launches = 0
-                reset_route_launches()
                 run = cli_run(base + ORDERING_CONFIGS[name] + ['--device', dev])
             res = run['res']
             entry = dict(top1=res['top1'], top5=res['top5'], loss=res['loss'],
@@ -2969,9 +2944,10 @@ def accuracy_path(device, card, steps=1000, n_test=2048, batch=256, draws=16):
             return entry, run
 
         for name, flags in ORDERING_CONFIGS.items():
+            mark = counters.snapshot()
             entry, run = run_cli(name, device.type)
-            counted = Counter({k: fn.launches for k, fn in wrappers.items()})
-            routes = +route_launches()
+            counted = launched_since(mark)
+            routes = +route_launches(mark)
             policy = ordering_policy(name)
             modes, route_pred = ordering_predictions(model, params, policy,
                                                      '--serving_int8' in flags, n_batches,
@@ -3005,23 +2981,21 @@ def accuracy_path(device, card, steps=1000, n_test=2048, batch=256, draws=16):
         t_band = time.perf_counter()
         state = {k: v.cpu().numpy() for k, v in params.items()}
         score = port_band_scorer(model, meta, xte, yte, batch, device)
-        for fn in wrappers.values():
-            fn.launches = 0
-        reset_route_launches()
+        mark = counters.snapshot()
         with cli_instrumented() as (modes, logits):
             def score_keeping_no_logits(state, name):
                 out = score(state, name)
                 logits.clear()
                 return out
             band = accuracy_band(score_keeping_no_logits, state, draws)
-        counted_band = Counter({k: fn.launches for k, fn in wrappers.items()})
+        counted_band = launched_since(mark)
         predicted = Counter()
         for name in BAND_CONFIGS:
             one, _ = ordering_predictions(model, params, ordering_policy(name), False,
                                           n_batches, cal_batches)
-            predicted += times_counter(one, draws + 1)
+            predicted += times(one, draws + 1)
         check(modes == predicted and +counted_band == Counter(fake_quant=sum(predicted.values()))
-              and not +route_launches(),
+              and not +route_launches(mark),
               f'accuracy_path band: launches {dict(counted_band)} by mode {dict(modes)}, the '
               f'tables predict {dict(predicted)}')
         launches += counted_band

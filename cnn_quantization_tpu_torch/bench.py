@@ -52,10 +52,9 @@ from .models import build_model
 from .models.layers import (PackedQTensor, QAvgPool, QBatchNorm, QConv, QLinear, QMaxPool,
                             QTensor)
 from .ops.kernels import fake_quant as fq
-from .ops.kernels import int4_matmul as i4
-from .ops.kernels import int_conv as ic
 from .ops.kernels import int_matmul as im
 from .ops.kernels import stream_copy as sc
+from .utils import counters
 from .utils.device import card_name_and_power, resolve_device
 from .utils.profiling import device_ms, device_peaks, per_op_profile, roofline_report
 
@@ -68,15 +67,6 @@ WIDE = 1 << 21   # elements from which a float tensor between modules counts as 
 
 class BenchFailure(Exception):
     """A section of the bench failed; ``args[0]`` names it."""
-
-
-def kernel_launches() -> dict:
-    """The launch counts of the five kernel wrappers, as they stand."""
-    return {'fake_quant': fq.fake_quant_fused.launches,
-            'int8_gemm': im.int8_matmul_dequant.launches,
-            'int8_conv': ic.int8_conv_dequant.launches,
-            'int4_gemm': i4.int4_matmul.launches,
-            'stream_copy': sc.stream_copy.launches}
 
 
 def _emit(section, **fields):
@@ -366,12 +356,12 @@ def run(*, arch='resnet50', batch=128, size=224, sweep=(64, 256), device=None,
     launches = {}
 
     def _section(name, fn, *args, **kwargs):
-        before = kernel_launches()
+        before = counters.snapshot()
         try:
             out = fn(*args, **kwargs)
         except Exception as e:
             raise BenchFailure(name) from e
-        launches[name] = {k: v - before[k] for k, v in kernel_launches().items()}
+        launches[name] = counters.by_kernel(counters.since(before))
         return out
 
     r = _section('bench', bench, arch=arch, batch=batch, size=size, device=dev)

@@ -309,9 +309,9 @@ def mesh_from_args(args, device):
 
 def _s2d_stem_applied(params_s) -> bool:
     """True if ``prepare_serving_params`` space-to-depth transformed the stem
-    kernel (an int8 [O, 12, 4, 4] weight exists in the tree)."""
-    return any(getattr(v, 'ndim', 0) == 4 and tuple(v.shape[1:]) == (12, 4, 4)
-               for v in params_s.values())
+    kernel (``int_conv.is_s2d_stem_weight``)."""
+    from ..ops.kernels.int_conv import is_s2d_stem_weight
+    return any(is_s2d_stem_weight(v) for v in params_s.values())
 
 
 def main(argv=None):

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 import zlib
 from typing import Any, Mapping
 
@@ -55,14 +56,27 @@ class Site:
 
 
 class TapContext:
-    """Base: quantization disabled."""
+    """Base: quantization disabled.  It declares, at their off values, what
+    the layers read of the true-int serving path, which
+    ``ServingInt8Context`` sets."""
 
     mode = 'off'
     data_group = None
     model_group = None
+    int8_serving = False
+    act_scales: Mapping[str, Any] = types.MappingProxyType({})
+    act_bits = weight_bits = 8
+    calibrate = False
+    packed: bool | tuple = False
 
     def tap(self, x, site: Site):
         return x
+
+    def record_scale(self, site_id: str, scale):
+        """A dynamic serving scale, kept for calibration; off, nothing."""
+
+    def record_input_stats(self, site_id: str, x, groups: int = 1):
+        """A serving input's calibration statistics; off, nothing."""
 
     def finalize(self) -> dict[str, Any]:
         return {}
@@ -104,11 +118,6 @@ class ServingInt8Context(TapContext):
     mode = 'serving_int8'
     int8_serving = True
 
-    # The first conv (in_ch == 3) runs as the float conv: three input channels
-    # waste an int8 tile's K, and the reference keeps the first layer at
-    # higher precision anyway (inference_quantization_manager.py:360-366).
-    bf16_first_conv = True
-
     def __init__(self, act_scales: Mapping[str, Any] | None = None,
                  act_bits: int = 8, weight_bits: int = 8,
                  calibrate: bool = False, percentile: float = 99.99,
@@ -124,8 +133,9 @@ class ServingInt8Context(TapContext):
     def record_scale(self, site_id: str, scale):
         self.recorded[site_id] = scale
 
-    def record_input_stats(self, site_id: str, xf32, groups: int = 1):
-        """Calibration-time input statistics for scale freezing.
+    def record_input_stats(self, site_id: str, x, groups: int = 1):
+        """Calibration-time input statistics for scale freezing, of ``x`` in
+        float32; nothing unless ``calibrate``.
 
         ``groups > 1`` (grouped/depthwise conv inputs, where the activation
         scale factors out of the integer sum per group) records per-group
@@ -135,6 +145,7 @@ class ServingInt8Context(TapContext):
         mapping relies on."""
         if not self.calibrate:
             return
+        xf32 = x.float()
         per_group = groups > 1 and xf32.ndim == 4
         if per_group:
             n, c, h, w = xf32.shape

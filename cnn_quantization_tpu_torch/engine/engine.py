@@ -16,15 +16,14 @@ from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops import bias_corr
 from ..ops.aciq import ALPHA_LAPLACE
-from ..ops.kernels import launch_counts, launches_since
+from ..ops.kernels.int_conv import s2d_stem_kernel
 from ..ops.kernels.int_matmul import quantize_sym_int8
 from ..ops.quantizer import quantize_weight
 from ..ops.stats import global_over
-from ..utils import spans
+from ..utils import counters, spans
 from ..utils.device import as_f32, nhwc_to_nchw
 from .context import CollectContext, QuantizeContext, ServingInt8Context, TapContext
 from .policy import QuantPolicy, parse_qtype_bits
@@ -316,13 +315,13 @@ class QuantEngine:
 
 
 def _forward_span(fwd):
-    """``fwd`` as one ``engine.forward`` span, which carries the kernels'
-    launches by route (``ops.kernels.launches_since``)."""
+    """``fwd`` as one ``engine.forward`` span, which carries the counters
+    that moved during it (``utils/counters.since``)."""
     def call(*args):
         with spans.span('engine.forward') as s:
-            before = launch_counts()
+            before = counters.snapshot()
             out = fwd(*args)
-            s.counts = launches_since(before)
+            s.counts = counters.since(before)
         return out
 
     return call
@@ -342,34 +341,3 @@ def _run(model, params, images, ctx, device, mesh=None):
         logits = torch.func.functional_call(model, params, (x, ctx))
     return logits, ctx.finalize()
 
-
-def s2d_stem_kernel(kernel: torch.Tensor) -> torch.Tensor:
-    """Space-to-depth transform of a 7x7/2 pad-3 stem kernel [O, 3, 7, 7] to
-    the equivalent stride-1 kernel [O, 12, 4, 4].
-
-    Output row i of the original conv covers padded-image rows 2i..2i+6.
-    After s2d by 2 (channel order: row phase, col phase, channel), s2d row
-    i+j holds padded rows (2(i+j), 2(i+j)+1), so the window is s2d rows
-    i..i+3 with tap [j, phase] = w8[2j+phase], w8 being the 7x7 kernel
-    zero-padded to 8x8."""
-    o, c = kernel.shape[:2]
-    w8 = F.pad(kernel, (0, 1, 0, 1))                       # [O, C, 8, 8]
-    return (w8.reshape(o, c, 4, 2, 4, 2)                   # o, c, j, ph, i, pw
-            .permute(0, 3, 5, 1, 2, 4)                     # o, ph, pw, c, j, i
-            .reshape(o, 4 * c, 4, 4))
-
-
-def s2d_stem_input(x: torch.Tensor) -> torch.Tensor:
-    """pad(x, 3) then space-to-depth by 2: [N, C, H, W] -> [N, 4C, (H+6)/2,
-    (W+6)/2] (channel order row phase, col phase, channel, as
-    ``s2d_stem_kernel``), in channels_last memory.  Needs H and W even.  For
-    int8 codes the zero padding is exact (zero point 0)."""
-    n, c, h, w = x.shape
-    if h % 2 or w % 2:
-        raise ValueError(f's2d stem needs an even input size, got {h}x{w}')
-    xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, 3, 3, 3, 3))  # NHWC, H and W padded
-    h, w = h + 6, w + 6
-    return (xp.reshape(n, h // 2, 2, w // 2, 2, c)
-            .permute(0, 1, 3, 2, 4, 5)
-            .reshape(n, h // 2, w // 2, 4 * c)
-            .permute(0, 3, 1, 2))

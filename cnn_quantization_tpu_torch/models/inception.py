@@ -19,7 +19,7 @@ Port of ``cnn_quantization_tpu/models/inception.py``:
   * ``transform_input`` renormalizes the input as the pretrained model does;
   * each mixed block's forward is a fine span ``layer.Inception<A-E>`` under a
     profiler, and its concatenations count the bytes they write
-    (``ops.kernels.CONCAT``, ``concat.bytes`` in ``engine.forward``'s counts).
+    (``concat.bytes`` in the store, ``utils/counters.py``).
 
 Module names are torchvision's own (``Mixed_5b.branch5x5_1.conv``,
 ``Mixed_7a.branch7x7x3_4.conv``): their ``_<digits>`` are part of the name,
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..engine.context import TapContext
-from ..ops.kernels import CONCAT
+from ..utils import counters
 from ..utils.spans import traced
 from .googlenet import BasicConv2d, transform_input
 from .layers import QLinear, SiteNamer
@@ -54,7 +54,7 @@ def _cat(parts):
     """The branches joined along the channels; the bytes written counted
     from the output's shape."""
     y = torch.cat(parts, 1)
-    CONCAT.bytes += y.numel() * y.element_size()
+    counters.add('concat.bytes', y.numel() * y.element_size())
     return y
 
 

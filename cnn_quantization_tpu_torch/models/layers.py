@@ -30,6 +30,7 @@ from torch import nn
 from ..engine.context import Site, TapContext
 from ..ops.kernels import int4_matmul, int_conv, int_matmul
 from ..parallel.mesh import gather_channels
+from ..utils import counters
 from ..utils.device import as_f32
 from ..utils.spans import traced
 
@@ -131,7 +132,7 @@ def _gather_out(ctx: TapContext, y, features: int, dim: int = 1):
     """The layer's full output: ``y`` itself, or, when the weight held a
     slice of the ``features`` output channels, every rank's slice gathered
     over the context's model group."""
-    group = getattr(ctx, 'model_group', None)
+    group = ctx.model_group
     if group is None or y.shape[dim] == features:
         return y
     return gather_channels(y, group, dim)
@@ -189,11 +190,12 @@ class QConv(nn.Module):
         could honour them."""
         weight = self.weight
         # the s2d stem: prepare_serving_params(s2d_stem=True) stored the 7x7/2
-        # stem kernel as an equivalent int8 [O, 12, 4, 4] stride-1 kernel
-        stem_s2d = (self.in_ch == 3 and weight.dtype == torch.int8
-                    and tuple(weight.shape[1:]) == (12, 4, 4))
-        if getattr(ctx, 'int8_serving', False) and (stem_s2d or not (
-                self.in_ch == 3 and getattr(ctx, 'bf16_first_conv', True))):
+        # stem kernel as an equivalent int8 [O, 12, 4, 4] stride-1 kernel.
+        # Any other first conv (in_ch == 3) serves as the float conv: three
+        # input channels waste an int8 tile's K, and the reference keeps the
+        # first layer at higher precision (inference_quantization_manager.py:360-366)
+        stem_s2d = self.in_ch == 3 and int_conv.is_s2d_stem_weight(weight)
+        if ctx.int8_serving and (stem_s2d or self.in_ch != 3):
             return _tap(ctx, self._serve(x, ctx, stem_s2d, residual, out_spec, fuse_relu, packed),
                         self.site)
         if residual is not None or out_spec is not None or fuse_relu or packed:
@@ -241,13 +243,12 @@ class QConv(nn.Module):
         # the first layer (any in_ch == 3 conv) is the 8-bit exception
         # (reference i_q_m.py:336-338, 360-366); it must match
         # freeze_serving_scales' full-grid conv0 scale
-        act_bits = 8 if self.in_ch == 3 else getattr(ctx, 'act_bits', 8)
+        act_bits = 8 if self.in_ch == 3 else ctx.act_bits
         if self.weight.dtype == torch.int8:
             # offline-prepared tree: no per-call weight quantization
             w_codes, w_scale = self.weight, self.w_scale
         else:
-            w_codes, w_scale = int_conv.prepare_int8_weights(
-                self.weight, bits=getattr(ctx, 'weight_bits', 8))
+            w_codes, w_scale = int_conv.prepare_int8_weights(self.weight, bits=ctx.weight_bits)
         # grouped convs admit per-group activation scales in true-int
         # arithmetic: output channel o sums only over its group's inputs, so
         # acc[o] * gs[group_of(o)] * w_scale[o] is exact (int8_conv maps it);
@@ -258,7 +259,7 @@ class QConv(nn.Module):
         if prequant:
             act_scale = pre_scale
         else:
-            act_scale = getattr(ctx, 'act_scales', {}).get(site_id)
+            act_scale = ctx.act_scales.get(site_id)
             if act_scale is None:
                 # dynamic abs-max; recorded so calibration can freeze it
                 xf32 = x.float()
@@ -270,11 +271,9 @@ class QConv(nn.Module):
                 else:
                     amax = xf32.abs().amax()
                 act_scale = int_matmul.abs_max_scale(amax, act_bits)
-                if site_id is not None and hasattr(ctx, 'record_scale'):
+                if site_id is not None:
                     ctx.record_scale(site_id, act_scale)
-                    if getattr(ctx, 'calibrate', False):
-                        ctx.record_input_stats(site_id, xf32,
-                                               groups=self.groups if per_group else 1)
+                    ctx.record_input_stats(site_id, xf32, groups=self.groups if per_group else 1)
         # the epilogue's codes: the next consumer's scale, on its input grid,
         # or for a downsample's identity on the full int8 grid
         out_scale = res = None
@@ -301,10 +300,9 @@ class QConv(nn.Module):
                                  f'strides={self.strides} padding={self.padding}')
             # quantize the image, then pad + space-to-depth in the int8 domain
             # (zero padding is exact at zero point 0), stride-1 equivalent conv
-            from ..engine.engine import s2d_stem_input
-            int_matmul.count_float_in(int_conv.FEATURE_CALLS, x)
+            counters.add('int8_conv.float_in_bytes', x.numel() * x.element_size())
             codes = int_matmul.quantize_sym_codes(x, act_scale)
-            y = int_conv.int8_conv(s2d_stem_input(codes), w_codes, w_scale, self.bias,
+            y = int_conv.int8_conv(int_conv.s2d_stem_input(codes), w_codes, w_scale, self.bias,
                                    strides=(1, 1), padding=(0, 0), act_bits=8,
                                    act_scale=act_scale, **epilogue)
         else:
@@ -315,8 +313,8 @@ class QConv(nn.Module):
         y = _gather_out(ctx, y, self.features)
         if out_scale is not None:
             return QTensor(y, out_scale)
-        if self.out_codes and site_id is not None and getattr(ctx, 'calibrate', False):
-            ctx.record_input_stats(site_id + ':out', y.float())
+        if self.out_codes and site_id is not None:
+            ctx.record_input_stats(site_id + ':out', y)
         return y
 
     @staticmethod
@@ -333,14 +331,13 @@ class QConv(nn.Module):
         out, so block boundaries cross device memory at 4 bits
         (ops/kernels/int4_matmul.py); orchestrated by models/resnet.py
         Bottleneck.  A stride slices the rows spatially ahead of the GEMM."""
-        act_bits = getattr(ctx, 'act_bits', 8)
+        act_bits = ctx.act_bits
         if isinstance(x, PackedQTensor):
             a, a_scale, a_packed = x.codes, x.scale, True
         elif isinstance(x, QTensor):
             a, a_scale, a_packed = x.codes, x.scale, False
         else:
-            a_scale = getattr(ctx, 'act_scales', {}).get(
-                self.site.id if self.site is not None else None)
+            a_scale = ctx.act_scales.get(self.site.id if self.site is not None else None)
             if a_scale is None:
                 raise ValueError('packed serving requires frozen activation scales')
             a_scale = as_f32(a_scale, x.device)
@@ -388,7 +385,7 @@ class QLinear(nn.Module):
 
     @traced('layer.QLinear')
     def forward(self, x, ctx: TapContext):
-        if not getattr(ctx, 'int8_serving', False):
+        if not ctx.int8_serving:
             if self.dtype == torch.float32:   # two paths as in ``QConv.forward``, and why
                 y = F.linear(x.float(), self.weight, self.bias)
             else:
@@ -403,15 +400,14 @@ class QLinear(nn.Module):
         else:
             w_codes, w_scale = int_matmul.quantize_sym_int8(self.weight, axis=0, bits=8)
         site_id = self.site.id if self.site is not None else None
-        act_scale = getattr(ctx, 'act_scales', {}).get(site_id)
+        act_scale = ctx.act_scales.get(site_id)
         xf = x.float()
         if act_scale is None:
             act_scale = int_matmul.abs_max_scale(xf.abs().amax(), 8)
-            if site_id is not None and hasattr(ctx, 'record_scale'):
+            if site_id is not None:
                 ctx.record_scale(site_id, act_scale)
-                if getattr(ctx, 'calibrate', False):
-                    ctx.record_input_stats(site_id, xf)
-        int_matmul.count_float_in(int_matmul.FEATURE_CALLS, xf)
+                ctx.record_input_stats(site_id, xf)
+        counters.add('int8_gemm.float_in_bytes', xf.numel() * xf.element_size())
         x_q = int_matmul.quantize_sym_codes(xf, act_scale)
         y = int_matmul.int8_matmul_dequant(x_q.reshape(-1, x_q.shape[-1]), w_codes.t(),
                                            act_scale * w_scale, self.bias,

@@ -28,9 +28,9 @@ def _codes_scales(spec, ctx):
     conv's input scale, then the downsample's identity scale
     (``<site>:out``).  None off the true-int path, with BN live, or where one
     is absent (calibration, dynamic serving): the block then runs on floats."""
-    if not getattr(ctx, 'int8_serving', False) or not spec.fold_bn:
+    if not ctx.int8_serving or not spec.fold_bn:
         return None
-    scales = getattr(ctx, 'act_scales', {})
+    scales = ctx.act_scales
     keys = [site.id for site, _ in spec.conv_sites]
     if spec.has_downsample:
         keys.append(spec.ds_sites[0].id + ':out')
@@ -44,7 +44,7 @@ def _block_input(x, scale, ctx):
     kernel emitted there, or the float input quantized once."""
     if isinstance(x, QTensor):
         return x
-    return QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
+    return QTensor(quantize_sym_codes(x, scale, ctx.act_bits), scale)
 
 
 def _serving_block_input(x, ctx, conv1_site):
@@ -55,12 +55,12 @@ def _serving_block_input(x, ctx, conv1_site):
     flow, elementwise).  Returns (x_in, identity)."""
     if isinstance(x, (QTensor, PackedQTensor)):
         raise RuntimeError('a block off the int8-resident path was handed codes')
-    if not getattr(ctx, 'int8_serving', False):
+    if not ctx.int8_serving:
         return x, x
-    scale = getattr(ctx, 'act_scales', {}).get(conv1_site.id)
+    scale = ctx.act_scales.get(conv1_site.id)
     if scale is None:
         return x, x
-    q = QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
+    q = QTensor(quantize_sym_codes(x, scale, ctx.act_bits), scale)
     return q, q.dequant(x.dtype)
 
 
@@ -166,7 +166,7 @@ class Bottleneck(nn.Module):
         next block's input scale when it takes codes, or None for a float
         output."""
         fold = self.spec.fold_bn
-        if out_spec is not False and getattr(ctx, 'packed', False):
+        if out_spec is not False and ctx.packed:
             # W4A4 packed serving (orchestrated by ResNet.forward): conv1,
             # conv3 and the downsample run as int4 GEMMs, conv2 stays the int8
             # conv and emits codes at conv3's frozen scale; the residual
@@ -255,7 +255,7 @@ class ResNet(nn.Module):
             # serving: quantize the stem output at the first block conv's
             # frozen input scale and max-pool on int8 codes (max commutes
             # with dequant), so the 112x112 stem tensor is pooled at 1 byte
-            x = QTensor(quantize_sym_codes(x, scale, getattr(ctx, 'act_bits', 8)), scale)
+            x = QTensor(quantize_sym_codes(x, scale, ctx.act_bits), scale)
         x = self.maxpool(x, ctx)
         for i, (stage, blk) in enumerate(trunk):
             last = i + 1 == len(trunk)
@@ -296,7 +296,7 @@ class ResNet(nn.Module):
         packed epilogue).  Otherwise the model takes the plain int8-resident
         path everywhere.  ``ctx.packed`` is True (all stages) or a tuple of
         stages ((1,) packs stage 1 only, the rest stay plain)."""
-        pk = getattr(ctx, 'packed', False)
+        pk = ctx.packed
         stages = tuple(pk) if isinstance(pk, (tuple, list)) else ((1, 2, 3, 4) if pk else ())
         blocks = [sp for stage in self.stage_specs for sp in stage]
         if not (stages and self.fold_bn
@@ -307,8 +307,7 @@ class ResNet(nn.Module):
             need += [site.id for site, _ in sp.conv_sites]
             if sp.has_downsample:
                 need.append(sp.ds_sites[0].id + ':out:packed')
-        scales = getattr(ctx, 'act_scales', {})
-        return stages if all(n in scales for n in need) else ()
+        return stages if all(n in ctx.act_scales for n in need) else ()
 
 
 _LAYER_CFG = {

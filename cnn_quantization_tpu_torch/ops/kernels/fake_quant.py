@@ -20,8 +20,8 @@ weights, activations, frozen and dynamic, in three modes:
     semantics of ``quant_math.fake_quant_kernel_semantics`` (c).
 
 For a tensor on the CPU each wrapper runs the plain version; for a CUDA
-tensor it launches the kernel or raises.  ``fake_quant_fused.launches``
-counts kernel launches, and nothing else.
+tensor it launches the kernel or raises.  Its launches are counted in the
+port's one store, ``utils/counters.py``.
 
 The same library holds the serving path's float hand-off, ``launch_codes``:
 the int8 codes of float activations in one pass, which
@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from ...utils import counters
 from ...utils.device import as_f32
 from ..quant_math import affine_qparams, fake_quant, fake_quant_kernel_semantics
 from . import build
@@ -104,7 +105,7 @@ def launch(x, p0, p1, qmax, channel_dim, mode, seed=0):
             seed & 0xFFFFFFFFFFFFFFFF, stream)
     if rc != 0:
         raise RuntimeError(f'fake-quant kernel launch failed: CUDA error {rc}')
-    fake_quant_fused.launches += 1
+    counters.add('fake_quant')
     return out
 
 
@@ -141,8 +142,6 @@ def fake_quant_fused(x, delta, offset, qmax, *, channel_dim: int | None = None,
     return launch(x, scale, zero_point, as_f32(qmax, x.device), channel_dim,
                   STOCHASTIC if stochastic else AFFINE, seed)
 
-
-fake_quant_fused.launches = 0
 
 
 def fake_quant_kernel_semantics_fused(x, delta, offset, num_bits: int):

@@ -46,9 +46,8 @@ kernel reads them through pointers): a host copy would synchronise each of
 the 36 launches of a forward.
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
-it launches the kernel or raises.  ``int4_matmul.launches`` counts kernel
-launches, and nothing else; ``launches_wgmma`` and ``launches_mma_sync`` count
-them by route.
+it launches the kernel or raises.  Its launches by route are counted in the
+port's one store, ``utils/counters.py``.
 """
 
 from __future__ import annotations
@@ -57,6 +56,7 @@ import ctypes
 
 import torch
 
+from ...utils import counters
 from ...utils.device import as_f32
 from . import build
 from .int_matmul import column_vector, int_matmul_exact
@@ -65,6 +65,7 @@ GROUP = 256          # channels per packing group
 HALF = GROUP // 2    # bytes per group
 
 _MODES = {'f32': 0, 'bf16': 1, 'int8': 2, 'packed': 3}
+_LAUNCHES = {'wgmma': 'int4_gemm.wgmma', 'mma_sync': 'int4_gemm.mma_sync'}
 _lib = None
 
 
@@ -192,9 +193,7 @@ def launch(a, b, alpha, beta, residual, res_scale, out_scale, a_packed, fuse_rel
             int(route == 'wgmma'), stream)
     if rc != 0:
         raise RuntimeError(f'int4 GEMM kernel launch failed ({route} route): CUDA error {rc}')
-    int4_matmul.launches += 1
-    counter = f'launches_{route}'
-    setattr(int4_matmul, counter, getattr(int4_matmul, counter) + 1)
+    counters.add(_LAUNCHES[route])
     return out
 
 
@@ -225,10 +224,6 @@ def int4_matmul(a, b, alpha, beta=None, *, residual=None, res_scale=None, out_sc
     return launch(a, b, alpha, beta, residual, res_scale, out_scale, a_packed, fuse_relu,
                   out_mode, out_qmax, out_dtype)
 
-
-int4_matmul.launches = 0
-int4_matmul.launches_wgmma = 0
-int4_matmul.launches_mma_sync = 0
 
 
 def int4_matmul_plain(a, b, alpha, beta=None, *, residual=None, res_scale=None, out_scale=None,

@@ -38,37 +38,36 @@ lowering, :126-154) writes the patches to device memory and multiplies them
 with the int8 GEMM kernel; it computes what ``int8_conv`` computes, bit for
 bit, and is kept as a cross-check of the implicit-GEMM kernel.
 
+The space-to-depth stem's format lives here beside the weights':
+``s2d_stem_kernel`` rewrites the 7x7/2 stem as a stride-1 [O, 12, 4, 4]
+kernel, ``s2d_stem_input`` its input, and ``is_s2d_stem_weight`` recognises
+the prepared kernel.
+
 The tensor-core routes' epilogue can also take a residual in and hand codes
 out, as the GEMM's (``int_matmul.fused_epilogue``); the depthwise kernel has
 neither, so there ``int8_conv_dequant`` writes floats and composes them with
 ``int_matmul.requant_epilogue``.
 
 For tensors on the CPU the wrappers run the plain versions; for CUDA tensors
-they launch the kernels or raise.  ``int8_conv_dequant.launches`` counts
-launches of the conv kernel, and nothing else; ``launches_depthwise``,
-``launches_im2col_wgmma`` and ``launches_implicit_gemm`` count them by route;
-``FEATURE_CALLS.codes_out`` and ``.residual_in`` count the calls of
-``int8_conv_dequant``, on either device, whose epilogue emits codes or adds a
-residual; ``FEATURE_CALLS.float_in_bytes`` the bytes of floating activations
-that ``int8_conv`` and ``int8_conv_im2col`` take in and quantize themselves (0
-for a call handed codes).
+they launch the kernels or raise.  The conv kernel's launches by route, the
+calls of ``int8_conv_dequant`` that emit codes or add a residual, and the bytes
+of floats ``int8_conv`` and ``int8_conv_im2col`` quantize themselves are
+counted in the port's one store, ``utils/counters.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import types
 
 import torch
 import torch.nn.functional as F
 
+from ...utils import counters
 from ...utils.device import as_f32
 from . import build, int_matmul
 from .int_matmul import quantize_sym_codes, quantize_sym_int8
 
 _lib = None
-# as int_matmul.FEATURE_CALLS, for the conv wrapper
-FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0, float_in_bytes=0)
 
 
 def _library():
@@ -90,6 +89,44 @@ def prepare_int8_weights(kernel, *, bits: int = 8):
     return codes.contiguous(memory_format=torch.channels_last), scale
 
 
+def s2d_stem_kernel(kernel: torch.Tensor) -> torch.Tensor:
+    """Space-to-depth transform of a 7x7/2 pad-3 stem kernel [O, 3, 7, 7] to
+    the equivalent stride-1 kernel [O, 12, 4, 4].
+
+    Output row i of the original conv covers padded-image rows 2i..2i+6.
+    After s2d by 2 (channel order: row phase, col phase, channel), s2d row
+    i+j holds padded rows (2(i+j), 2(i+j)+1), so the window is s2d rows
+    i..i+3 with tap [j, phase] = w8[2j+phase], w8 being the 7x7 kernel
+    zero-padded to 8x8."""
+    o, c = kernel.shape[:2]
+    w8 = F.pad(kernel, (0, 1, 0, 1))                       # [O, C, 8, 8]
+    return (w8.reshape(o, c, 4, 2, 4, 2)                   # o, c, j, ph, i, pw
+            .permute(0, 3, 5, 1, 2, 4)                     # o, ph, pw, c, j, i
+            .reshape(o, 4 * c, 4, 4))
+
+
+def s2d_stem_input(x: torch.Tensor) -> torch.Tensor:
+    """pad(x, 3) then space-to-depth by 2: [N, C, H, W] -> [N, 4C, (H+6)/2,
+    (W+6)/2] (channel order row phase, col phase, channel, as
+    ``s2d_stem_kernel``), in channels_last memory.  Needs H and W even.  For
+    int8 codes the zero padding is exact (zero point 0)."""
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f's2d stem needs an even input size, got {h}x{w}')
+    xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, 3, 3, 3, 3))  # NHWC, H and W padded
+    h, w = h + 6, w + 6
+    return (xp.reshape(n, h // 2, 2, w // 2, 2, c)
+            .permute(0, 1, 3, 2, 4, 5)
+            .reshape(n, h // 2, w // 2, 4 * c)
+            .permute(0, 3, 1, 2))
+
+
+def is_s2d_stem_weight(weight: torch.Tensor) -> bool:
+    """Whether ``weight`` is a prepared space-to-depth stem: the int8 codes
+    of an [O, 12, 4, 4] ``s2d_stem_kernel``."""
+    return weight.dtype == torch.int8 and weight.ndim == 4 and tuple(weight.shape[1:]) == (12, 4, 4)
+
+
 def _quantize_act(x, act_bits: int, act_scale):
     """(int8 codes, float32 scale) of an NCHW activation.  int8 input is
     already codes and needs the scale it was quantized with; a vector scale
@@ -97,7 +134,7 @@ def _quantize_act(x, act_bits: int, act_scale):
     if act_scale is None:
         if x.dtype == torch.int8:
             raise ValueError('int8 codes input requires act_scale')
-        int_matmul.count_float_in(FEATURE_CALLS, x)
+        counters.add('int8_conv.float_in_bytes', x.numel() * x.element_size())
         return quantize_sym_int8(x.float(), bits=act_bits)
     scale = as_f32(act_scale, x.device)
     if scale.ndim == 1 and scale.shape[0] != x.shape[1]:
@@ -105,12 +142,14 @@ def _quantize_act(x, act_bits: int, act_scale):
                          f'{x.shape[1]} input channels')
     if x.dtype == torch.int8:
         return x, scale
-    int_matmul.count_float_in(FEATURE_CALLS, x)
+    counters.add('int8_conv.float_in_bytes', x.numel() * x.element_size())
     per = scale.view(1, -1, 1, 1) if scale.ndim == 1 else scale
     return quantize_sym_codes(x, per, act_bits), scale
 
 
 _ROUTE_CODES = {'implicit_gemm': 0, 'depthwise': 1, 'im2col_wgmma': 2}
+_LAUNCHES = {'implicit_gemm': 'int8_conv.implicit_gemm', 'depthwise': 'int8_conv.depthwise',
+             'im2col_wgmma': 'int8_conv.im2col_wgmma'}
 
 
 def conv_route(in_ch: int, out_ch: int, groups: int, *, kernel=(1, 1), strides=(1, 1),
@@ -193,9 +232,7 @@ def launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_d
             code, os_vec, int_matmul.qmax_of(out_bits), _ROUTE_CODES[route], stream)
     if rc != 0:
         raise RuntimeError(f'int8 conv kernel launch failed ({route} route): CUDA error {rc}')
-    int8_conv_dequant.launches += 1
-    counter = f'launches_{route}'
-    setattr(int8_conv_dequant, counter, getattr(int8_conv_dequant, counter) + 1)
+    counters.add(_LAUNCHES[route])
     return out.permute(0, 3, 1, 2)
 
 
@@ -210,7 +247,8 @@ def int8_conv_dequant(x_q, w_codes, alpha, bias=None, *, strides=(1, 1), padding
     residual's codes [N, O, Ho, Wo]."""
     strides, padding = tuple(strides), tuple(padding)
     if x_q.device.type == 'cpu':
-        int_matmul.count_features(FEATURE_CALLS, out_scale, residual)
+        counters.add('int8_conv.codes_out', out_scale is not None)
+        counters.add('int8_conv.residual_in', residual is not None)
         return int8_conv_dequant_plain(x_q, w_codes, alpha, bias, strides=strides,
                                        padding=padding, groups=groups, fuse_relu=fuse_relu,
                                        out_dtype=out_dtype, out_scale=out_scale,
@@ -222,15 +260,11 @@ def int8_conv_dequant(x_q, w_codes, alpha, bias=None, *, strides=(1, 1), padding
                    fuse_relu and residual is None, out_dtype)
         return int_matmul.requant_epilogue(y, fuse_relu, out_scale, out_bits, residual,
                                            shape=(1, -1, 1, 1))
-    int_matmul.count_features(FEATURE_CALLS, out_scale, residual)
+    counters.add('int8_conv.codes_out', out_scale is not None)
+    counters.add('int8_conv.residual_in', residual is not None)
     return launch(x_q, w_codes, alpha, bias, strides, padding, groups, fuse_relu, out_dtype,
                   out_scale=out_scale, out_bits=out_bits, residual=residual)
 
-
-int8_conv_dequant.launches = 0
-int8_conv_dequant.launches_depthwise = 0
-int8_conv_dequant.launches_im2col_wgmma = 0
-int8_conv_dequant.launches_implicit_gemm = 0
 
 
 def int_conv_exact(x_q, w_codes, strides, padding, groups) -> torch.Tensor:

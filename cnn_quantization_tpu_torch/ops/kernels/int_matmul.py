@@ -42,31 +42,24 @@ The float hand-off, ``quantize_sym_codes``, launches the codes kernel of
 ``csrc/fake_quant.cu``; its plain twin is ``quantize_sym_codes_plain``.
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors it
-launches the kernel or raises.  ``int8_matmul_dequant.launches`` counts kernel
-launches, and nothing else; ``launches_wgmma`` and ``launches_mma_sync`` count
-them by route; ``FEATURE_CALLS.codes_out`` and ``.residual_in`` count the
-calls, on either device, whose epilogue emits codes or adds a residual;
-``FEATURE_CALLS.float_in_bytes`` the bytes of floating activations that a
-linear layer quantizes itself before it calls the wrapper with their codes
-(``count_float_in``).
+launches the kernel or raises.  Its launches by route, its calls that emit
+codes or add a residual, and the codes kernel's launches are counted in the
+port's one store, ``utils/counters.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import types
 
 import torch
 
+from ...utils import counters
 from ...utils.device import as_f32
 from . import build, fake_quant
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
-# the wrapper's calls whose epilogue emits codes or adds a residual, and the
-# bytes of floats quantized on entry to an integer linear; kept off the
-# wrapper, which instrumentation replaces with a function that calls it
-FEATURE_CALLS = types.SimpleNamespace(codes_out=0, residual_in=0, float_in_bytes=0)
+_LAUNCHES = {'wgmma': 'int8_gemm.wgmma', 'mma_sync': 'int8_gemm.mma_sync'}
 
 
 def _library():
@@ -127,20 +120,6 @@ def qmax_of(bits: int) -> float:
     return 2.0 ** (bits - 1) - 1.0
 
 
-def count_features(calls, out_scale, residual):
-    """Counts in ``calls`` a call whose epilogue emits codes or adds a
-    residual."""
-    calls.codes_out += out_scale is not None
-    calls.residual_in += residual is not None
-
-
-def count_float_in(calls, x):
-    """Counts in ``calls`` the bytes of the floating activation ``x`` that an
-    integer conv or linear takes in and quantizes itself: a host add from
-    ``x``'s shape, nothing read from the device."""
-    calls.float_in_bytes += x.numel() * x.element_size()
-
-
 def gemm_route(k: int, aligned: bool = True) -> str:
     """The kernel route of an int8 GEMM with depth ``k``: ``'wgmma'`` where TMA
     can describe both K-major operands (every row stride a multiple of 16
@@ -187,11 +166,7 @@ def launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype, out_scale=None, out_bits
             int(route == 'wgmma'), stream)
     if rc != 0:
         raise RuntimeError(f'int8 GEMM kernel launch failed ({route} route): CUDA error {rc}')
-    int8_matmul_dequant.launches += 1
-    if route == 'wgmma':
-        int8_matmul_dequant.launches_wgmma += 1
-    else:
-        int8_matmul_dequant.launches_mma_sync += 1
+    counters.add(_LAUNCHES[route])
     return out
 
 
@@ -206,17 +181,14 @@ def int8_matmul_dequant(a_q, b_q, alpha, beta=None, *, fuse_relu: bool = False,
     or one a column) the output is the int8 codes of that value on the
     ``out_bits`` grid, and ``out_dtype`` the type the value travels in
     (``fused_epilogue``)."""
-    count_features(FEATURE_CALLS, out_scale, residual)
+    counters.add('int8_gemm.codes_out', out_scale is not None)
+    counters.add('int8_gemm.residual_in', residual is not None)
     if a_q.device.type == 'cpu':
         return int8_matmul_dequant_plain(a_q, b_q, alpha, beta, fuse_relu=fuse_relu,
                                          out_dtype=out_dtype, out_scale=out_scale,
                                          out_bits=out_bits, residual=residual)
     return launch(a_q, b_q, alpha, beta, fuse_relu, out_dtype, out_scale, out_bits, residual)
 
-
-int8_matmul_dequant.launches = 0
-int8_matmul_dequant.launches_wgmma = 0
-int8_matmul_dequant.launches_mma_sync = 0
 
 
 def int_matmul_exact(a_q, b_q) -> torch.Tensor:
@@ -353,19 +325,15 @@ def quantize_sym_codes(x, scale, bits: int = 8) -> torch.Tensor:
     ``quantize_sym_codes_plain``; for a CUDA tensor one launch of the codes
     kernel (``csrc/fake_quant.cu``), equal to it bit for bit, in ``x``'s
     layout (a strided view is copied dense first), or an error where the
-    kernel takes no such call (``codes_route``).  ``.launches`` counts the
-    launches."""
+    kernel takes no such call (``codes_route``)."""
     if x.device.type == 'cuda' and not _dense(x):
         x = x.contiguous()
     layout = codes_route(x, scale, bits)
     if layout is None:
         return quantize_sym_codes_plain(x, scale, bits)
     out = fake_quant.launch_codes(x, scale, qmax_of(bits), *layout)
-    quantize_sym_codes.launches += x.numel() > 0
+    counters.add('quantize_codes.launches', x.numel() > 0)
     return out
-
-
-quantize_sym_codes.launches = 0
 
 
 def quantize_sym_codes_plain(x, scale, bits: int = 8) -> torch.Tensor:

@@ -23,8 +23,8 @@ the same parity but may have the other sign), and ``lax.rem`` truncates (the
 sign of the dividend, ``torch.fmod``) where ``torch.remainder`` floors.
 
 For a tensor on the CPU the wrapper runs the plain version; for a CUDA tensor
-it launches the kernel or raises.  ``stream_copy.launches`` counts kernel
-launches, and nothing else.
+it launches the kernel or raises.  Its launches are counted in the port's one
+store, ``utils/counters.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from ...utils import counters
 from . import build
 
 _lib = None
@@ -81,7 +82,7 @@ def launch(a, s):
                                   a.numel(), stream)
     if rc != 0:
         raise RuntimeError(f'stream-copy kernel launch failed: CUDA error {rc}')
-    stream_copy.launches += 1
+    counters.add('stream_copy')
     return out, psums
 
 
@@ -93,8 +94,6 @@ def stream_copy(a, s):
         return stream_copy_plain(a, s)
     return launch(a, s)
 
-
-stream_copy.launches = 0
 
 
 def stream_copy_plain(a, s):

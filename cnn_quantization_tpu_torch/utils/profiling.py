@@ -181,8 +181,6 @@ def _observed(module, name, counter, ops=False):
     try:
         yield
     finally:
-        # the launch counts made through the stand-in belong to the wrapper
-        real.__dict__.update(call.__dict__)
         setattr(module, name, real)
 
 

@@ -25,7 +25,7 @@ from cnn_quantization_tpu_torch.engine import QuantEngine, QuantPolicy, TapConte
 from cnn_quantization_tpu_torch.models import build_model
 from cnn_quantization_tpu_torch.models.layers import QConv, QLinear
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
-from cnn_quantization_tpu_torch.utils import profiling
+from cnn_quantization_tpu_torch.utils import counters, profiling
 from cnn_quantization_tpu_torch.utils.device import nhwc_to_nchw
 
 SIZE = 64
@@ -144,10 +144,11 @@ def test_counted_operations_equal_a_hand_sum(r18):
     # the same work whatever carries it: the serving forward counts the same operations
     sp = eng.prepare_serving_params(params)
     serve = eng.make_forward(quantized='serving_int8')
-    before = im.int8_matmul_dequant.launches
+    before = counters.snapshot()
     ops_s, bytes_s = profiling.count_work(model, lambda: serve(sp, None, x))
     assert ops_s == want and bytes_s > 0
-    assert im.int8_matmul_dequant.launches == before   # the CPU launches nothing
+    # the CPU launches nothing
+    assert counters.by_kernel(counters.since(before))['int8_gemm'] == 0
     assert im.int8_matmul_dequant.__name__ == 'int8_matmul_dequant'   # the wrapper is back
     rep = profiling.roofline_report(model, lambda: serve(sp, None, x), calls_per_sec=3.0,
                                     int8=True, device='cpu')

@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s ``zoo_path`` phase rehearsed on the CPU at small sizes
 and batch 2: every run, check and launch prediction of the phase, with
-stand-ins for the kernels' launches (the plain version's result, counted by
-mode or route as the kernel's own wrapper counts).  On the card the phase
+stand-ins for the kernels' launches (the plain version's result, counted in
+the store by mode or route as the kernel's own wrapper counts).  On the card the phase
 runs eight architectures at 224x224 (Inception-v3 at 299x299) and batch 32
 through the kernels themselves."""
 
@@ -13,6 +13,7 @@ from cnn_quantization_tpu_torch.cli import inference_sim
 from cnn_quantization_tpu_torch.ops.kernels import fake_quant as fq
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
+from cnn_quantization_tpu_torch.utils import counters
 
 
 @pytest.fixture()
@@ -20,10 +21,9 @@ def stand_in_kernels(monkeypatch):
     n = torch.get_num_threads()
     torch.set_num_threads(1)   # the suite runs six test files at once
     plain, plain_sem = fq.fake_quant_fused_plain, fq.fake_quant_kernel_semantics_plain
-    gemm, conv = im.int8_matmul_dequant, ic.int8_conv_dequant
 
     def launch(x, p0, p1, qmax, channel_dim, mode, seed=0):
-        fq.fake_quant_fused.launches += 1
+        counters.add('fake_quant')
         return x   # the result was computed by the plain version below
 
     def fused(x, delta, offset, qmax, *, channel_dim=None, stochastic=False, seed=0):
@@ -35,24 +35,16 @@ def stand_in_kernels(monkeypatch):
     def semantics(x, delta, offset, num_bits):
         return fq.launch(plain_sem(x, delta, offset, num_bits), None, None, None, None, fq.MINMAX)
 
-    def count(fn, stand_in, route):
-        # the wrapper's own counters, which the phase reads (route_launches)
-        fn.launches += 1
-        stand_in.launches += 1
-        setattr(fn, f'launches_{route}', getattr(fn, f'launches_{route}') + 1)
-
     def gemm_in(a, b, alpha, beta=None, **kw):
-        count(gemm, gemm_in, im.gemm_route(a.shape[1]))
+        counters.add('int8_gemm.' + im.gemm_route(a.shape[1]))
         return im.int8_matmul_dequant_plain(a, b, alpha, beta, **kw)
 
     def conv_in(x, w, alpha, bias=None, *, strides=(1, 1), padding=(0, 0), groups=1, **kw):
-        count(conv, conv_in, ic.conv_route(x.shape[1], w.shape[0], groups,
-                                           kernel=tuple(w.shape[2:]), strides=tuple(strides),
-                                           padding=tuple(padding)))
+        counters.add('int8_conv.' + ic.conv_route(x.shape[1], w.shape[0], groups,
+                                                  kernel=tuple(w.shape[2:]),
+                                                  strides=tuple(strides), padding=tuple(padding)))
         return ic.int8_conv_dequant_plain(x, w, alpha, bias, strides=tuple(strides),
                                           padding=tuple(padding), groups=groups, **kw)
-
-    gemm_in.launches = conv_in.launches = 0
 
     monkeypatch.setattr(fq, 'launch', launch)
     monkeypatch.setattr(fq, 'fake_quant_fused', fused)

@@ -28,7 +28,7 @@ from cnn_quantization_tpu_torch.models.layers import QConv, QLinear, QTensor, re
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
 from cnn_quantization_tpu_torch.ops.kernels.int_matmul import quantize_sym_codes_plain
-from cnn_quantization_tpu_torch.utils import spans
+from cnn_quantization_tpu_torch.utils import counters, profiling, spans
 
 SIZE = 64
 # (codes out, residual in, codes at one scale a column)
@@ -246,10 +246,9 @@ def test_feature_counts_per_forward(arch, want):
     classifier quantize on entry, and of the concatenations, with and
     without frozen scales."""
     eng, sp, cal, x = _serving(arch, size=75 if arch == 'inception_v3' else SIZE)
-    counters = (im.FEATURE_CALLS, ic.FEATURE_CALLS)
-    before = [(c.codes_out, c.residual_in) for c in counters]
+    before = counters.snapshot()
     scales = eng.freeze_serving_scales(sp, cal)
-    assert [(c.codes_out, c.residual_in) for c in counters] == before
+    assert not [k for k in counters.since(before) if k.endswith(('.codes_out', '.residual_in'))]
     for fwd, features in ((eng.make_forward(quantized='serving_int8', act_scales=scales), want),
                           (eng.make_forward(quantized='serving_int8'), {})):
         with _bytes_seen(eng.model) as seen:
@@ -264,6 +263,26 @@ def test_feature_counts_per_forward(arch, want):
         # pairs of 384 channels at 1x1 each
         assert seen['concat.bytes'] == 2 * 4 * (
             (256 + 288 + 288) * 49 + 768 * 9 * 5 + 1280 + 2 * (2048 + 2 * 768))
+
+
+def test_feature_counts_equal_under_count_work():
+    """A serving forward run inside ``profiling.count_work``, whose stand-ins
+    replace the kernel wrappers while it counts, moves the store's epilogue
+    and float-in counters exactly as the same forward run bare."""
+    eng, sp, cal, x = _serving('resnet18')
+    fwd = eng.make_forward(quantized='serving_int8', act_scales=eng.freeze_serving_scales(sp, cal))
+    keys = [f'int8_{k}.{f}' for k in ('gemm', 'conv')
+            for f in ('float_in_bytes', 'codes_out', 'residual_in')]
+    moved = []
+    for run in (lambda: fwd(sp, None, x),
+                lambda: profiling.count_work(eng.model, lambda: fwd(sp, None, x))):
+        before = counters.snapshot()
+        run()
+        moved.append({k: n for k, n in counters.since(before).items() if k in keys})
+    # the classifier's 512 float32 inputs a image; codes out of every conv
+    # but the last block's conv2, the identity into each block's conv2
+    assert moved[0] == moved[1] == {'int8_gemm.float_in_bytes': 2 * 512 * 4,
+                                    'int8_conv.codes_out': 18, 'int8_conv.residual_in': 8}
 
 
 def test_forward_without_frozen_scales_keeps_floats(monkeypatch):

@@ -16,6 +16,7 @@ from cnn_quantization_tpu.ops import quant_math as jqm
 from cnn_quantization_tpu.ops.kernels import fake_quant_fused as j_fused
 
 from cnn_quantization_tpu_torch.ops.kernels import fake_quant as fq
+from cnn_quantization_tpu_torch.utils import counters
 
 
 def _nchw(x_nhwc):
@@ -116,11 +117,11 @@ def test_stochastic_statistics_match_pallas_semantics():
 
 
 def test_cpu_runs_plain_and_counts_no_launch():
-    before = fq.fake_quant_fused.launches
+    before = counters.snapshot()
     x = torch.randn(4, 8)
     fq.fake_quant_fused(x, 2.0, -1.0, 15.0)
     fq.fake_quant_kernel_semantics_fused(x, 2.0, -1.0, 4)
-    assert fq.fake_quant_fused.launches == before == 0
+    assert counters.since(before) == {}
 
 
 def test_non_cuda_device_raises():

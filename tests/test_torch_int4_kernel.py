@@ -32,6 +32,7 @@ from cnn_quantization_tpu.ops.kernels.int4_matmul import pack_int4 as j_pack
 from cnn_quantization_tpu.ops.kernels.int4_matmul import unpack_int4 as j_unpack
 
 from cnn_quantization_tpu_torch.ops.kernels import int4_matmul as i4
+from cnn_quantization_tpu_torch.utils import counters
 
 
 def _codes(rs, shape, lo=-7, hi=7):
@@ -235,10 +236,9 @@ def test_wrapper_contract_and_shape_errors():
     raise."""
     z = lambda *s: torch.zeros(*s, dtype=torch.int8)  # noqa: E731
     ones = torch.ones(256)
-    before = i4.int4_matmul.launches
+    before = counters.snapshot()
     i4.int4_matmul(z(4, 128), z(256, 256), ones, None, a_packed=True)
-    assert i4.int4_matmul.launches == before == 0
-    assert i4.int4_matmul.launches_wgmma == i4.int4_matmul.launches_mma_sync == 0
+    assert counters.since(before) == {}
     with pytest.raises(ValueError, match='CUDA'):
         i4.launch(z(4, 256), z(256, 256), ones, None, None, None, None, False, False, 'f32',
                   127.0, torch.float32)

@@ -25,9 +25,9 @@ from cnn_quantization_tpu.ops.kernels.int_matmul import int8_matmul_dequant as j
 from cnn_quantization_tpu.ops.kernels.int_matmul import quantize_sym_int8 as j_quantize
 
 from cnn_quantization_tpu_torch.engine.context import percentile_rows
-from cnn_quantization_tpu_torch.engine.engine import s2d_stem_input, s2d_stem_kernel
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
+from cnn_quantization_tpu_torch.utils import counters
 
 
 def _nchw(x_nhwc):
@@ -110,9 +110,9 @@ def test_gemm_wrapper_contract():
     the launch itself takes CUDA tensors only, and int8 operands only."""
     a = torch.zeros(4, 8, dtype=torch.int8)
     b = torch.zeros(8, 3, dtype=torch.int8)
-    before = im.int8_matmul_dequant.launches
+    before = counters.snapshot()
     im.int8_matmul_dequant(a, b, torch.ones(3), torch.zeros(3))
-    assert im.int8_matmul_dequant.launches == before == 0
+    assert counters.since(before) == {}
     with pytest.raises(ValueError, match='CUDA'):
         im.launch(a, b, torch.ones(3), None, False, torch.float32)
     with pytest.raises(TypeError, match='int8'):
@@ -233,10 +233,10 @@ def test_int8_conv_codes_input():
 def test_conv_wrapper_contract():
     x = torch.zeros(1, 4, 5, 5, dtype=torch.int8)
     w = torch.zeros(6, 4, 3, 3, dtype=torch.int8)
-    before = ic.int8_conv_dequant.launches
+    before = counters.snapshot()
     out = ic.int8_conv_dequant(x, w, torch.ones(6), padding=(1, 1), out_dtype=torch.bfloat16)
     assert out.shape == (1, 6, 5, 5) and out.dtype == torch.bfloat16
-    assert ic.int8_conv_dequant.launches == before == 0
+    assert counters.since(before) == {}
     with pytest.raises(ValueError, match='CUDA'):
         ic.launch(x, w, torch.ones(6), None, (1, 1), (1, 1), 1, False, torch.float32)
     with pytest.raises(ValueError, match='do not fit'):
@@ -272,8 +272,8 @@ def test_s2d_stem_transform_equals_jax_and_the_7x7_conv():
     rng = np.random.RandomState(0)
     x = rng.randn(2, 64, 64, 3).astype(np.float32)
     w = rng.randn(7, 7, 3, 8).astype(np.float32)
-    wk = s2d_stem_kernel(_oihw(w))
-    xs = s2d_stem_input(_nchw(x))
+    wk = ic.s2d_stem_kernel(_oihw(w))
+    xs = ic.s2d_stem_input(_nchw(x))
     np.testing.assert_array_equal(wk.permute(2, 3, 1, 0).numpy(), np.asarray(j_s2d_kernel(w)))
     np.testing.assert_array_equal(_nhwc(xs), np.asarray(j_s2d_input(x)))
     assert xs.permute(0, 2, 3, 1).is_contiguous()  # channels_last memory
@@ -281,7 +281,7 @@ def test_s2d_stem_transform_equals_jax_and_the_7x7_conv():
     got = torch.nn.functional.conv2d(xs, wk)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match='even input size'):
-        s2d_stem_input(torch.zeros(1, 3, 63, 64))
+        ic.s2d_stem_input(torch.zeros(1, 3, 63, 64))
 
 
 @pytest.mark.parametrize('q', [50.0, 99.5, 99.99, 100.0])

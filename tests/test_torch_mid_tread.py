@@ -28,7 +28,7 @@ from cnn_quantization_tpu_torch.engine.context import QuantizeContext, Site
 from cnn_quantization_tpu_torch.engine.policy import QuantPolicy
 from cnn_quantization_tpu_torch.ops import mid_tread as mt
 from cnn_quantization_tpu_torch.ops import quantizer as q
-from cnn_quantization_tpu_torch.ops.kernels import fake_quant as fq
+from cnn_quantization_tpu_torch.utils import counters
 
 FLIP_FRAC = 1e-3
 
@@ -130,9 +130,9 @@ def test_quantize_activation_mid_tread_matches_jax(half, pcq_a):
               bit_alloc_target_act=5.3, measure_entropy=True)
     with jax.disable_jit():
         want, w_aux = j_q.quantize_activation(x, j_q.QuantConfig(**kw), half_range=half)
-    before = fq.fake_quant_fused.launches
+    before = counters.snapshot()
     got, aux = q.quantize_activation(nchw(x), q.QuantConfig(**kw), half_range=half)
-    assert fq.fake_quant_fused.launches == before
+    assert counters.since(before) == {}
     want = np.asarray(want)
     assert_codes_close(to_nhwc(got), want, step=np.abs(want).max() / 4)
     assert abs(float(aux['entropy']) - float(w_aux['entropy'])) < 1e-5

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
-from cnn_quantization_tpu_torch.ops.kernels import launch_counts, launches_since
+from cnn_quantization_tpu_torch.utils import counters
 
 CL = torch.channels_last
 
@@ -93,9 +93,9 @@ def test_cpu_runs_the_plain_twin_and_counts_no_launch(dtype, per_channel):
         [2.5, -3.5, 127.5, -128.0, float('inf'), -0.0]).to(dtype)
     scale = (torch.rand(8, generator=gen) + 0.5).view(1, -1, 1, 1) if per_channel \
         else torch.tensor(1.0)
-    before = launch_counts()
+    before = counters.snapshot()
     got = im.quantize_sym_codes(x, scale, 8)
-    assert launches_since(before) == {}
+    assert counters.since(before) == {}
     assert got.dtype == torch.int8 and torch.equal(got, im.quantize_sym_codes_plain(x, scale, 8))
     if not per_channel:
         assert got.as_strided((6,), (1,)).tolist() == [2, -4, 127, -127, 127, 0]
@@ -177,9 +177,9 @@ def test_codes_kernel_equals_plain_on_card():
         _plant(x, torch.cat([grid, raw]), gen)
         layout = im.codes_route(x, scale, bits)
         assert layout is not None and layout[2] == per_channel, (shape, fmt, dtype)
-        before = launch_counts()
+        before = counters.snapshot()
         got = im.quantize_sym_codes(x, scale, bits)
-        counts = launches_since(before)
+        counts = counters.since(before)
         want = im.quantize_sym_codes_plain(x, scale, bits)
         what = (shape, str(fmt), per_channel, str(dtype), bits, offset)
         assert counts == {'quantize_codes.launches': 1}, what
@@ -205,14 +205,14 @@ def test_codes_kernel_takes_the_call_or_raises_on_card():
     wide = torch.randn((3, 5000), device='cuda', generator=gen)
     wide_s = torch.rand((1, 5000), device='cuda', generator=gen) * 0.02 + 0.001
     for xx, ss in ((x[:, :, ::2], s), (x.transpose(1, 3), s), (w, w_s), (wide, wide_s)):
-        before = launch_counts()
+        before = counters.snapshot()
         got = im.quantize_sym_codes(xx, ss)
-        assert launches_since(before) == {'quantize_codes.launches': 1}, tuple(xx.shape)
+        assert counters.since(before) == {'quantize_codes.launches': 1}, tuple(xx.shape)
         assert torch.equal(got, im.quantize_sym_codes_plain(xx, ss)), tuple(xx.shape)
     for xx, ss, bits in ((x.half(), s, 8), (x.double(), s, 8), (x, s.cpu(), 8), (x, 0.05, 8),
                          (x, s.double(), 8), (x, s, 16), (x, s.view(1, 1, 1, 1, 1), 8),
                          (x, torch.full((1, 6, 8, 1), 0.05, device='cuda'), 8)):
-        before = launch_counts()
+        before = counters.snapshot()
         with pytest.raises(ValueError, match='codes kernel takes'):
             im.quantize_sym_codes(xx, ss, bits)
-        assert launches_since(before) == {}
+        assert counters.since(before) == {}

@@ -38,11 +38,13 @@ from cnn_quantization_tpu.cli.inference_sim import main as j_main
 from cnn_quantization_tpu.ops.kernels.int_conv import int8_conv as j_int8_conv
 
 from cnn_quantization_tpu_torch.cli.inference_sim import main
-from cnn_quantization_tpu_torch.engine.context import ServingInt8Context
+from cnn_quantization_tpu_torch.engine.context import (CollectContext, QuantizeContext,
+                                                        ServingInt8Context, TapContext)
 from cnn_quantization_tpu_torch.engine.evaluate import evaluate
-from cnn_quantization_tpu_torch.models import layers
+from cnn_quantization_tpu_torch.models import build_model, layers, resnet
 from cnn_quantization_tpu_torch.models.layers import PackedQTensor, QConv, QTensor
 from cnn_quantization_tpu_torch.ops.kernels import int_conv as ic
+from cnn_quantization_tpu_torch.ops.kernels import int_matmul as im
 from cnn_quantization_tpu_torch.utils.flax_params import (act_scales_from_jax,
                                                           state_dict_from_flax)
 
@@ -386,3 +388,34 @@ def test_cli_s2d_stem_note_on_odd_input(tmp_path, monkeypatch, capsys):
     out, res = _cli_result(main, argv, capsys)
     assert '--serving_s2d_stem requested but not applied (odd input size)' in out
     assert np.isfinite(res['loss'])
+
+
+@pytest.mark.parametrize('kind', ['tap', 'collect', 'quantize'])
+def test_contexts_off_the_serving_path_read_its_off_values(kind, monkeypatch):
+    """``TapContext`` declares what the serving layers read, at its off
+    values, and the other contexts inherit them: a forward under each reads
+    them and never reaches a serving branch (every one of them raises
+    here).  ``ServingInt8Context`` holds scales of its own."""
+    model, meta = build_model(ARCH, device='cpu', seed=0, input_size=32)
+    policy = QuantPolicy(arch=ARCH, qtype='int4', qweight='int4')
+    ctx = {'tap': TapContext(), 'collect': CollectContext(per_channel=False),
+           'quantize': QuantizeContext(policy)}[kind]
+    assert (ctx.int8_serving, ctx.act_bits, ctx.weight_bits, ctx.calibrate, ctx.packed) \
+        == (False, 8, 8, False, False)
+    assert dict(ctx.act_scales) == {} and ctx.act_scales is TapContext.act_scales
+    with pytest.raises(TypeError):
+        ctx.act_scales['conv1_activation'] = 1.0    # read-only, never a shared dict
+    assert ctx.record_scale('conv1_activation', 1.0) is None
+    assert ctx.record_input_stats('conv1_activation', torch.ones(2)) is None
+    assert ServingInt8Context().act_scales is not ServingInt8Context().act_scales
+
+    def serving(*args, **kwargs):
+        raise AssertionError('a serving branch ran off the serving path')
+
+    for owner, name in ((QConv, '_serve'), (QConv, '_packed_gemm_1x1'), (ic, 'int8_conv'),
+                        (im, 'int8_matmul_dequant'), (im, 'quantize_sym_codes'),
+                        (resnet, 'quantize_sym_codes')):
+        monkeypatch.setattr(owner, name, serving)
+    x = torch.from_numpy(np.random.RandomState(1).rand(2, 3, 32, 32).astype(np.float32))
+    logits = torch.func.functional_call(model, dict(model.state_dict()), (x, ctx))
+    assert logits.shape == (2, 1000) and bool(torch.isfinite(logits).all())

@@ -15,8 +15,8 @@ from cnn_quantization_tpu_torch.calib.calibrator import collect_statistics
 from cnn_quantization_tpu_torch.engine import QuantEngine, QuantPolicy
 from cnn_quantization_tpu_torch.engine.evaluate import evaluate
 from cnn_quantization_tpu_torch.models import build_model
-from cnn_quantization_tpu_torch.ops.kernels import build, int_conv as ic, int_matmul as im
-from cnn_quantization_tpu_torch.utils import spans
+from cnn_quantization_tpu_torch.ops.kernels import build
+from cnn_quantization_tpu_torch.utils import counters, spans
 
 SIZE = 64
 HEADLINE = dict(qtype='int4', qweight='int4', pcq_weights=True, pcq_act=True,
@@ -231,7 +231,7 @@ def test_serving_forward_counts_launches_by_route():
     ps = eng.prepare_serving_params(eng.quantize_params(params))
     scales = eng.freeze_serving_scales(ps, _batches(1))
     fwd = eng.make_forward('serving_int8', act_scales=scales)
-    convs, gemms = ic.int8_conv_dequant.launches, im.int8_matmul_dequant.launches
+    before = counters.snapshot()
     mark = _mark()
     fwd(ps, None, _batches(1)[0][0])
     torch.cuda.synchronize()
@@ -246,8 +246,10 @@ def test_serving_forward_counts_launches_by_route():
     assert by_kernel == {'int8_conv': 19, 'int8_gemm': 1}
     # the float hand-off's codes kernel: the stem output and the classifier's input
     assert f.counts['quantize_codes.launches'] == 2
-    assert by_kernel['int8_conv'] == ic.int8_conv_dequant.launches - convs
-    assert by_kernel['int8_gemm'] == im.int8_matmul_dequant.launches - gemms
+    # nothing launched outside the span
+    moved = counters.by_kernel(counters.since(before))
+    assert by_kernel['int8_conv'] == moved['int8_conv']
+    assert by_kernel['int8_gemm'] == moved['int8_gemm']
     assert f.counts['int8_gemm.wgmma'] == 1    # K = 512
     # codes out of every conv but the last block's conv2 (8 conv1, 3
     # downsamples, 7 conv2), the identity into each block's conv2
