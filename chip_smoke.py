@@ -148,7 +148,8 @@ from cnn_quantization_tpu_torch.utils import counters
 from cnn_quantization_tpu_torch.utils.device import card_name_and_power
 from cnn_quantization_tpu_torch.utils.profiling import device_ms as cuda_ms
 from cnn_quantization_tpu_torch.utils.profiling import (cost_analysis, count_work,
-                                                        device_ms_by_class, device_time_by_kernel)
+                                                        device_ms_by_class, device_time_by_kernel,
+                                                        kernel_class)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
@@ -527,6 +528,25 @@ def kernel_launches(mark):
     return k['int4_gemm'], k['int8_gemm'], k['int8_conv']
 
 
+@contextlib.contextmanager
+def device_kernels(ran: Counter):
+    """Adds to ``ran`` the kernels the device ran inside the block, by class,
+    as torch.profiler traced them: launched one by one or replayed from a
+    CUDA graph, whose replays run no wrapper that the counters see.  Classes
+    are ``utils/profiling.kernel_class``'s, the float hand-off's codes
+    kernel is ``'quantize_codes'``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield ran
+        torch.cuda.synchronize()
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).rsplit('.', 1)[-1] != 'CUDA':
+            continue
+        name = e.name()
+        ran['quantize_codes' if 'quantize_codes_elementwise_kernel' in name
+            else kernel_class(name)] += 1
+
+
 def int8_kernels_vs_plain(device):
     """Both int8 kernels, each by both of its routes, against their plain
     versions at the serving path's shapes, on both code grids.  The int32 sums
@@ -674,7 +694,9 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     evaluation; then one forward each with ACIQ-calibrated scales, on the
     W4A4 grid, with the space-to-depth stem and with dynamic scales.  Returns
     (engine, prepared params, frozen scales, weight-quantized params, one
-    batch, report)."""
+    batch, report).  The report's ``*_launches`` are the kernels the device
+    ran (traced), ``*_counted`` and ``route_counted`` what the counter store
+    counted, where a graph's replay adds what its capture counted."""
     model, meta = build_model(arch, device=device, seed=0)
     params = dict(model.state_dict())
     batches = list(synthetic_batches(batch, eval_batches, size=size, seed=12345))
@@ -691,33 +713,46 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
             sp, None, images)
         return bool(torch.isfinite(logits).all()) and logits.shape == (batch, 1000), aux
 
+    # the device's kernels are traced (``device_kernels``): a frozen forward
+    # replays a CUDA graph, which runs no wrapper, so the store only adds
+    # back what the capture counted
+    ran, ran_eval = Counter(), Counter()
     mark = counters.snapshot()
     t0 = time.perf_counter()
-    eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
-    pq = eng.quantize_params(params)
-    sp = eng.prepare_serving_params(pq)
-    scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max')
+    with device_kernels(ran):
+        eng = QuantEngine(model, QuantPolicy(arch=arch, **W8A8), meta)
+        pq = eng.quantize_params(params)
+        sp = eng.prepare_serving_params(pq)
+        scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max')
     codes_mark = counters.snapshot()
-    res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales)
-    codes_launches = counters.since(codes_mark).get('quantize_codes.launches', 0)
-    finite = {}
-    aciq = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='aciq')
-    finite['aciq'], _ = serve(eng, sp, aciq)
-    eng4 = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
-    sp4 = eng4.prepare_serving_params(eng4.quantize_params(params))
-    finite['w4a4'], _ = serve(eng4, sp4, eng4.freeze_serving_scales(sp4, batches, max_batches=2))
-    sp_s2d = eng.prepare_serving_params(pq, s2d_stem=True)
-    scales_s2d = eng.freeze_serving_scales(sp_s2d, batches, max_batches=2)
-    finite['s2d_stem'], _ = serve(eng, sp_s2d, scales_s2d)
-    finite['dynamic'], recorded = serve(eng, sp, None)
-    torch.cuda.synchronize(device)
+    with device_kernels(ran_eval):
+        res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales)
+    eval_counted = counters.since(codes_mark)
+    with device_kernels(ran):
+        finite = {}
+        aciq = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='aciq')
+        finite['aciq'], _ = serve(eng, sp, aciq)
+        eng4 = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
+        sp4 = eng4.prepare_serving_params(eng4.quantize_params(params))
+        finite['w4a4'], _ = serve(eng4, sp4,
+                                  eng4.freeze_serving_scales(sp4, batches, max_batches=2))
+        sp_s2d = eng.prepare_serving_params(pq, s2d_stem=True)
+        scales_s2d = eng.freeze_serving_scales(sp_s2d, batches, max_batches=2)
+        finite['s2d_stem'], _ = serve(eng, sp_s2d, scales_s2d)
+        finite['dynamic'], recorded = serve(eng, sp, None)
     wall = time.perf_counter() - t0
-    _, gemm_launches, conv_launches = kernel_launches(mark)
-    routes = route_launches(mark)
+    ran += ran_eval
+    _, gemm_counted, conv_counted = kernel_launches(mark)
+    routes, graph = route_launches(mark), counters.since(mark)
 
     # 2 calibration forwards per freeze; the s2d stem adds one conv launch
     forwards = (2 + eval_batches) + (2 + 1) + (2 + 1) + 1
     forwards_s2d = 2 + 1
+    # each frozen forward captures its graph at its first call (the
+    # evaluation's, ACIQ's, W4A4's; the s2d stem's): a forward run module by
+    # module on a side stream, then the capture, which runs nothing; the store
+    # counts that call as the one forward its first replay runs
+    warmups, warmups_s2d = 3, 1
     predicted_gemm = gemm_per * (forwards + forwards_s2d)
     predicted_conv = conv_per * forwards + conv_s2d * forwards_s2d
     predicted_routes = times(routes_per, forwards) + times(routes_s2d, forwards_s2d)
@@ -725,12 +760,24 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     report = dict(arch=arch, input_size=size, batch=batch, grid='W8A8',
                   gemm_per_forward=gemm_per, conv_per_forward=conv_per,
                   conv_per_forward_s2d_stem=conv_s2d, forwards=forwards + forwards_s2d,
-                  gemm_launches=gemm_launches, predicted_gemm_launches=predicted_gemm,
-                  conv_launches=conv_launches, predicted_conv_launches=predicted_conv,
-                  routes_per_forward=routes_per, route_launches=routes,
-                  predicted_route_launches=predicted_routes,
-                  codes_per_forward=codes_per, codes_launches=codes_launches,
-                  predicted_codes_launches=codes_per * eval_batches,
+                  graph_captures=graph.get('serving_graph.captures', 0),
+                  predicted_graph_captures=warmups + warmups_s2d,
+                  graph_replays=graph.get('serving_graph.replays', 0),
+                  predicted_graph_replays=eval_batches - 1,
+                  gemm_launches=ran['int8_gemm'],
+                  predicted_gemm_launches=gemm_per * (forwards + forwards_s2d + warmups
+                                                      + warmups_s2d),
+                  conv_launches=ran['int8_conv'],
+                  predicted_conv_launches=(conv_per * (forwards + warmups)
+                                           + conv_s2d * (forwards_s2d + warmups_s2d)),
+                  gemm_counted=gemm_counted, predicted_gemm_counted=predicted_gemm,
+                  conv_counted=conv_counted, predicted_conv_counted=predicted_conv,
+                  routes_per_forward=routes_per, route_counted=routes,
+                  predicted_route_counted=predicted_routes,
+                  codes_per_forward=codes_per, codes_launches=ran_eval['quantize_codes'],
+                  predicted_codes_launches=codes_per * (eval_batches + 1),
+                  codes_counted=eval_counted.get('quantize_codes.launches', 0),
+                  predicted_codes_counted=codes_per * eval_batches,
                   frozen_sites=len(scales), frozen_sites_s2d_stem=len(scales_s2d),
                   dynamic_recorded_sites=len(recorded),
                   s2d_stem_kernel=[str(s2d_codes.dtype), list(s2d_codes.shape)],
@@ -741,12 +788,39 @@ def drive_serving_path(device, *, arch='resnet50', size=224, batch=64, eval_batc
     return eng, sp, scales, pq, images, report
 
 
+def check_serving_path(srep):
+    """``main``'s checks of ``drive_serving_path``'s report."""
+    for what in ('gemm', 'conv', 'codes'):
+        check(srep[f'{what}_launches'] > 0
+              and srep[f'{what}_launches'] == srep[f'predicted_{what}_launches'],
+              f"serving path: the device ran {srep[f'{what}_launches']} {what} kernels, "
+              f"predicted {srep[f'predicted_{what}_launches']}")
+        check(srep[f'{what}_counted'] == srep[f'predicted_{what}_counted'],
+              f"serving path: {srep[f'{what}_counted']} {what} launches counted, predicted "
+              f"{srep[f'predicted_{what}_counted']}")
+    check(srep['graph_captures'] == srep['predicted_graph_captures']
+          and srep['graph_replays'] == srep['predicted_graph_replays'],
+          f"serving path graphs: {srep['graph_captures']} captures, {srep['graph_replays']} "
+          f"replays")
+    check(np.isfinite([srep['top1'], srep['top5'], srep['loss']]).all()
+          and all(srep['finite'].values()), f"non-finite serving output: {srep['finite']}")
+    check(srep['routes_per_forward'] == Counter(wgmma=34, im2col_wgmma=19)
+          and srep['route_counted'] == srep['predicted_route_counted'],
+          f"serving routes counted {srep['route_counted']}, the route table predicts "
+          f"{srep['predicted_route_counted']}")
+    check(srep['dynamic_recorded_sites'] == srep['gemm_per_forward'] + srep['conv_per_forward']
+          and srep['frozen_sites_s2d_stem'] == srep['frozen_sites'] + 1
+          and srep['s2d_stem_kernel'] == ['torch.int8', [64, 12, 4, 4]]
+          and srep['w4a4_max_code'] == 7, f'serving path bookkeeping: {srep}')
+
+
 def int8_resident_flow(eng, sp, scales, pq, images):
     """With frozen scales the block input is quantized once: every block's
     conv1 and downsample conv receive a QTensor, the max-pool runs on codes.
     Also the relative error of the frozen logits to the float logits of the
     same weights (reported; bounded at resnet18 64x64 in serving_card_vs_cpu)."""
-    fwd, result = eng.make_forward(quantized='serving_int8', act_scales=scales), []
+    # the forward run module by module: a replayed graph runs no module to watch
+    fwd, result = eng.make_forward(quantized='serving_int8', act_scales=scales).eager, []
     seen = bench.module_inputs(eng.model, lambda: result.append(fwd(sp, None, images)))
     (logits, aux), = result
     got_codes = {m.site.id: kind == 'codes' for m, kind, _, _ in seen if isinstance(m, QConv)}
@@ -777,10 +851,11 @@ def kernels_vs_plain_end_to_end(phase, eng, sp, scales, images, packed=False, to
     fwd = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=packed)
     kern, _ = fwd(sp, None, images)
     mark = counters.snapshot()
+    # the plain side runs module by module: a replayed graph calls no wrapper
     with mock.patch.object(i4, 'int4_matmul', i4.int4_matmul_plain), \
             mock.patch.object(im, 'int8_matmul_dequant', im.int8_matmul_dequant_plain), \
             mock.patch.object(ic, 'int8_conv_dequant', ic.int8_conv_dequant_plain):
-        plain, _ = fwd(sp, None, images)
+        plain, _ = fwd.eager(sp, None, images)
     out = dict(rel_err=rel_err(kern, plain),
                plain_run_launched_no_kernel=not any(kernel_launches(mark)),
                argmax_equal=bool(torch.equal(kern.argmax(-1), plain.argmax(-1))))
@@ -978,9 +1053,11 @@ def quantize_codes_timing(device, card):
 
 
 def codes_row(srep, rows):
-    """The ``kernels`` line's row of the float hand-off's codes kernel: its
-    launches in the serving path's frozen evaluation (a CUDA call launches it
-    or raises), and ``quantize_codes_timing``'s first shape.
+    """The ``kernels`` line's row of the float hand-off's codes kernel: the
+    runs the device traced in the serving path's frozen evaluation (its four
+    forwards and the forward run beside its graph's capture; a CUDA call
+    launches the kernel or raises), and ``quantize_codes_timing``'s first
+    shape.
     Held to the plain composition bit for bit, so no error."""
     t = rows[0]
     return {'name': 'quantize_codes', 'route': 'cuda',
@@ -1085,7 +1162,9 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
     2 batches), frozen packed evaluation; then one forward each with stages
     (1,) and (2, 3) packed, and one with the ``:out:packed`` keys removed,
     which must fall back to the plain path in full.  Returns (engine, prepared
-    params, frozen scales, one batch, report)."""
+    params, frozen scales, one batch, report); its ``launches`` are the
+    kernels the device ran (traced), ``counted`` what the counter store
+    counted (drive_serving_path)."""
     model, meta = build_model(arch, device=device, seed=0)
     params = dict(model.state_dict())
     batches = list(synthetic_batches(batch, eval_batches, size=size, seed=12345))
@@ -1099,52 +1178,97 @@ def drive_packed_path(device, *, arch='resnet50', size=224, batch=64, eval_batch
                                      packed=packed)(sp, None, images)
         return logits
 
+    # the device's kernels are traced (``device_kernels``), as in
+    # drive_serving_path; per_forward_counted is what the counter store
+    # counted, which a replay copies from its capture
+    ran = Counter()
     mark = counters.snapshot()
     t0 = time.perf_counter()
-    eng = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
-    sp = eng.prepare_serving_params(eng.quantize_params(params))
-    scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max', packed=True)
-    after_freeze = kernel_launches(mark)
-    res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales, packed=True)
-    after_eval = kernel_launches(mark)
-    finite, per_forward = {}, {}
-    for name, packed in (('stage_1', (1,)), ('stages_2_3', (2, 3))):
+    with device_kernels(ran):
+        eng = QuantEngine(model, QuantPolicy(arch=arch, **W4A4), meta)
+        sp = eng.prepare_serving_params(eng.quantize_params(params))
+        scales = eng.freeze_serving_scales(sp, batches, max_batches=2, mode='max', packed=True)
+        after_freeze = kernel_launches(mark)
+        res = evaluate(eng, sp, batches, quantized='serving_int8', act_scales=scales,
+                       packed=True)
+        after_eval = kernel_launches(mark)
+        finite, per_forward = {}, {}
+        for name, packed in (('stage_1', (1,)), ('stages_2_3', (2, 3))):
+            before = kernel_launches(mark)
+            logits = forward(scales, packed)
+            finite[name] = bool(torch.isfinite(logits).all()) and logits.shape == (batch, 1000)
+            per_forward[name] = [b - a for a, b in zip(before, kernel_launches(mark))]
+        no_packed_keys = {k: v for k, v in scales.items() if not k.endswith(':out:packed')}
         before = kernel_launches(mark)
-        logits = forward(scales, packed)
-        finite[name] = bool(torch.isfinite(logits).all()) and logits.shape == (batch, 1000)
-        per_forward[name] = [b - a for a, b in zip(before, kernel_launches(mark))]
-    no_packed_keys = {k: v for k, v in scales.items() if not k.endswith(':out:packed')}
-    before = kernel_launches(mark)
-    fallback = forward(no_packed_keys, True)
-    per_forward['fallback'] = [b - a for a, b in zip(before, kernel_launches(mark))]
-    fallback_equals_plain = bool(torch.equal(fallback, forward(no_packed_keys, False)))
-    finite['fallback'] = bool(torch.isfinite(fallback).all())
-    torch.cuda.synchronize(device)
+        fallback = forward(no_packed_keys, True)
+        per_forward['fallback'] = [b - a for a, b in zip(before, kernel_launches(mark))]
+        fallback_equals_plain = bool(torch.equal(fallback, forward(no_packed_keys, False)))
+        finite['fallback'] = bool(torch.isfinite(fallback).all())
     wall = time.perf_counter() - t0
-    launches = kernel_launches(mark)
-    route_counts = route_launches(mark)
+    counted = kernel_launches(mark)
+    route_counts, graph = route_launches(mark), counters.since(mark)
 
     # 2 dynamic calibration forwards and the 2 fallback forwards run plain
     forwards = {(): 2 + 2, all_stages: eval_batches, (1,): 1, (2, 3): 1}
+    # each frozen forward's first call captures a graph, one forward run
+    # module by module beside it (drive_serving_path): the evaluation's, the
+    # two staged ones', the fallback's, the plain one's
+    warmups = {(): 2, all_stages: 1, (1,): 1, (2, 3): 1}
     predicted = [sum(table[st][i] * n for st, n in forwards.items()) for i in range(3)]
+    on_device = [p + sum(table[st][i] * n for st, n in warmups.items())
+                 for i, p in enumerate(predicted)]
     predicted_routes = sum((times(routes[st], n) for st, n in forwards.items()), Counter())
+    kernels = ('int4_gemm', 'int8_gemm', 'int8_conv')
     report = dict(arch=arch, input_size=size, batch=batch, grid='W4A4',
                   per_forward_table={'packed': table[all_stages], 'stage_1': table[(1,)],
                                      'stages_2_3': table[(2, 3)], 'plain': table[()]},
-                  per_forward_measured=dict(
+                  per_forward_counted=dict(
                       packed=[(b - a) // eval_batches for a, b in zip(after_freeze, after_eval)],
                       **per_forward),
                   forwards=sum(forwards.values()),
-                  launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), launches)),
-                  predicted_launches=dict(zip(('int4_gemm', 'int8_gemm', 'int8_conv'), predicted)),
-                  routes_per_forward=routes[all_stages], route_launches=route_counts,
-                  predicted_route_launches=predicted_routes, frozen_sites=len(scales),
+                  graph_captures=graph.get('serving_graph.captures', 0),
+                  predicted_graph_captures=sum(warmups.values()),
+                  graph_replays=graph.get('serving_graph.replays', 0),
+                  predicted_graph_replays=eval_batches - 1,
+                  launches={k: ran[k] for k in kernels},
+                  predicted_launches=dict(zip(kernels, on_device)),
+                  counted=dict(zip(kernels, counted)),
+                  predicted_counted=dict(zip(kernels, predicted)),
+                  routes_per_forward=routes[all_stages], route_counted=route_counts,
+                  predicted_route_counted=predicted_routes, frozen_sites=len(scales),
                   packed_out_keys=sum(k.endswith(':out:packed') for k in scales),
                   fallback_equals_plain=fallback_equals_plain,
                   top1=res['top1'], top5=res['top5'], loss=res['loss'],
                   images_per_sec=res['images_per_sec'], finite=finite,
                   packed_path_wall_s=wall)
     return eng, sp, scales, images, report
+
+
+def check_packed_path(prep):
+    """``main``'s checks of ``drive_packed_path``'s report."""
+    check(prep['launches']['int4_gemm'] > 0 and prep['launches'] == prep['predicted_launches'],
+          f"packed path: the device ran {prep['launches']}, predicted "
+          f"{prep['predicted_launches']}")
+    check(prep['counted'] == prep['predicted_counted']
+          and prep['graph_captures'] == prep['predicted_graph_captures']
+          and prep['graph_replays'] == prep['predicted_graph_replays'],
+          f"packed path: counted {prep['counted']}, predicted {prep['predicted_counted']}; "
+          f"{prep['graph_captures']} captures, {prep['graph_replays']} replays")
+    check(prep['per_forward_table']['packed'] == (36, 1, 16)
+          and prep['per_forward_counted']['packed'] == [36, 1, 16]
+          and prep['per_forward_counted']['stage_1'] == list(prep['per_forward_table']['stage_1'])
+          and prep['per_forward_counted']['stages_2_3']
+          == list(prep['per_forward_table']['stages_2_3'])
+          and prep['per_forward_counted']['fallback'] == list(prep['per_forward_table']['plain'])
+          and prep['per_forward_counted']['fallback'][0] == 0 and prep['fallback_equals_plain'],
+          f'packed path launches per forward: {prep}')
+    check(prep['routes_per_forward'] == Counter(int4_wgmma=36, wgmma=1, im2col_wgmma=16)
+          and prep['route_counted'] == prep['predicted_route_counted'],
+          f"packed path routes counted {prep['route_counted']}, the route tables predict "
+          f"{prep['predicted_route_counted']}")
+    check(np.isfinite([prep['top1'], prep['top5'], prep['loss']]).all()
+          and all(prep['finite'].values()) and prep['packed_out_keys'] == 4,
+          f'packed path output: {prep}')
 
 
 def packed_flow(eng, sp, scales, images):
@@ -1159,8 +1283,8 @@ def packed_flow(eng, sp, scales, images):
         return conv_forward(self, x, ctx, **kw)
 
     with mock.patch.object(QConv, 'forward', conv):
-        logits, aux = eng.make_forward(quantized='serving_int8', act_scales=scales, packed=True)(
-            sp, None, images)
+        logits, aux = eng.make_forward(quantized='serving_int8', act_scales=scales,
+                                       packed=True).eager(sp, None, images)
     wrong = []
     for name, m in eng.model.named_modules():
         if not isinstance(m, QConv) or not name.startswith('layer'):
@@ -1503,24 +1627,53 @@ def bench_calls_vs_plain(device):
 
 
 def forward_kinds(counts):
-    """A stand-in for ``torch.func.functional_call`` that counts the forwards
-    of a run by what they launch: serving forwards by model and the stages
-    that run packed, quantizing forwards by model."""
-    real = torch.func.functional_call
+    """Stand-ins for ``torch.func.functional_call`` and
+    ``QuantEngine.make_forward`` that count the forwards of a run by what
+    they launch: serving forwards by model and the stages that run packed,
+    quantizing forwards by model.  A forward of ``make_forward`` counts once
+    a call, whether it runs module by module, captures its CUDA graph (a
+    warm-up and a capture, which the counters count as the one forward its
+    first replay runs) or replays it; a ``functional_call`` made outside one
+    (calibration) counts once."""
+    real_call, real_make = torch.func.functional_call, QuantEngine.make_forward
+    inside = []
 
-    def call(model, params, args, *rest, **kw):
-        ctx = args[1]
-        key = None
+    def kind(model, ctx):
         if isinstance(ctx, ServingInt8Context):
             stages = model._packed_stages(ctx) if hasattr(model, '_packed_stages') else ()
-            key = ('serving', type(model).__name__, tuple(stages))
-        elif isinstance(ctx, QuantizeContext):
-            key = ('quantize', type(model).__name__, ())
+            return ('serving', type(model).__name__, tuple(stages))
+        if isinstance(ctx, QuantizeContext):
+            return ('quantize', type(model).__name__, ())
+        return None
+
+    def count(key):
         if key is not None:
             counts[key] = counts.get(key, 0) + 1
-        return real(model, params, args, *rest, **kw)
 
-    return call
+    def call(model, params, args, *rest, **kw):
+        if not inside:
+            count(kind(model, args[1]))
+        return real_call(model, params, args, *rest, **kw)
+
+    def make(engine, *args, **kw):
+        fwd = real_make(engine, *args, **kw)
+        key = kind(engine.model, fwd.context(None))
+
+        def counted(f):
+            def forward(*args):
+                count(key)
+                inside.append(key)
+                try:
+                    return f(*args)
+                finally:
+                    inside.pop()
+            return forward
+
+        out = counted(fwd)
+        out.eager = counted(fwd.eager)
+        return out
+
+    return call, make
 
 
 def bench_path(device, card):
@@ -1551,7 +1704,9 @@ def bench_path(device, card):
 
     mark = counters.snapshot()
     t0 = time.perf_counter()
-    with mock.patch.object(torch.func, 'functional_call', forward_kinds(forwards)), \
+    call, make = forward_kinds(forwards)
+    with mock.patch.object(torch.func, 'functional_call', call), \
+            mock.patch.object(QuantEngine, 'make_forward', make), \
             mock.patch.object(QuantEngine, 'quantize_params', counting_quantize_params):
         headline, by_section = bench.run(batch=BENCH_BATCH, device=device)
     torch.cuda.synchronize()
@@ -2639,7 +2794,8 @@ def tools_path(device, card, arch='resnet50', golden_size=224, golden_batch=64,
     # (4) cost_analysis of one W8A8 serving forward beside count_work's count
     model, eng8, sp, scales, batches = parallel_setup(device, arch, golden_size, golden_batch,
                                                       False)
-    fwd = eng8.make_forward(quantized='serving_int8', act_scales=scales)
+    # both count what the forward's modules and wrappers do: run them
+    fwd = eng8.make_forward(quantized='serving_int8', act_scales=scales).eager
     images = batches[0][0]
     mark = counters.snapshot()
     t0 = time.perf_counter()
@@ -3202,27 +3358,7 @@ def main():
     # ---- main path 2: true-int8 serving through the int8 GEMM and conv kernels
     eng, sp, scales, pq, images, srep = drive_serving_path(device)
     emit('serving_path', card=card, **srep)
-    check(srep['gemm_launches'] > 0
-          and srep['gemm_launches'] == srep['predicted_gemm_launches'],
-          f"int8 GEMM launches {srep['gemm_launches']} != predicted "
-          f"{srep['predicted_gemm_launches']}")
-    check(srep['conv_launches'] > 0
-          and srep['conv_launches'] == srep['predicted_conv_launches'],
-          f"int8 conv launches {srep['conv_launches']} != predicted "
-          f"{srep['predicted_conv_launches']}")
-    check(np.isfinite([srep['top1'], srep['top5'], srep['loss']]).all()
-          and all(srep['finite'].values()), f"non-finite serving output: {srep['finite']}")
-    check(srep['routes_per_forward'] == Counter(wgmma=34, im2col_wgmma=19)
-          and srep['route_launches'] == srep['predicted_route_launches'],
-          f"serving routes launched {srep['route_launches']}, the route table predicts "
-          f"{srep['predicted_route_launches']}")
-    check(srep['codes_launches'] == srep['predicted_codes_launches'] == 2 * 4,
-          f"codes kernel launches in the frozen evaluation {srep['codes_launches']} != "
-          f"predicted {srep['predicted_codes_launches']}")
-    check(srep['dynamic_recorded_sites'] == srep['gemm_per_forward'] + srep['conv_per_forward']
-          and srep['frozen_sites_s2d_stem'] == srep['frozen_sites'] + 1
-          and srep['s2d_stem_kernel'] == ['torch.int8', [64, 12, 4, 4]]
-          and srep['w4a4_max_code'] == 7, f'serving path bookkeeping: {srep}')
+    check_serving_path(srep)
     int8_resident_flow(eng, sp, scales, pq, images)
     kernels_vs_plain_end_to_end('serving_kernels_vs_plain_end_to_end', eng, sp, scales, images)
     emit('serving_step_profile', card=card, **profile_serving_forward(
@@ -3233,23 +3369,7 @@ def main():
     packed_card_vs_cpu(device)
     eng, sp, scales, images, prep = drive_packed_path(device)
     emit('packed_path', card=card, **prep)
-    check(prep['launches']['int4_gemm'] > 0 and prep['launches'] == prep['predicted_launches'],
-          f"packed path launches {prep['launches']} != predicted {prep['predicted_launches']}")
-    check(prep['per_forward_table']['packed'] == (36, 1, 16)
-          and prep['per_forward_measured']['packed'] == [36, 1, 16]
-          and prep['per_forward_measured']['stage_1'] == list(prep['per_forward_table']['stage_1'])
-          and prep['per_forward_measured']['stages_2_3']
-          == list(prep['per_forward_table']['stages_2_3'])
-          and prep['per_forward_measured']['fallback'] == list(prep['per_forward_table']['plain'])
-          and prep['per_forward_measured']['fallback'][0] == 0 and prep['fallback_equals_plain'],
-          f'packed path launches per forward: {prep}')
-    check(prep['routes_per_forward'] == Counter(int4_wgmma=36, wgmma=1, im2col_wgmma=16)
-          and prep['route_launches'] == prep['predicted_route_launches'],
-          f"packed path routes launched {prep['route_launches']}, the route tables predict "
-          f"{prep['predicted_route_launches']}")
-    check(np.isfinite([prep['top1'], prep['top5'], prep['loss']]).all()
-          and all(prep['finite'].values()) and prep['packed_out_keys'] == 4,
-          f'packed path output: {prep}')
+    check_packed_path(prep)
     packed_flow(eng, sp, scales, images)
     packed_vs_plain_on_card(eng, sp, scales, images)
     kernels_vs_plain_end_to_end('packed_kernels_vs_plain_end_to_end', eng, sp, scales, images,

@@ -26,9 +26,12 @@ dispatches, so a step's time is CUDA events around a few warm forwards queued
 behind a short device spin; the host's wall time for the same forwards and the
 device's idle share (1 - profiled device busy time / wall time) stand beside
 it, since a path whose kernels are shorter than their launches is paced by the
-host.  Roofline fields come from counted work (``utils/profiling.count_work``):
-2 x MACs of every conv and linear, and every kernel's and elementwise pass's
-operands and output once.
+host.  The serving rows replay a CUDA graph of the forward after its first
+call (``QuantEngine.make_forward``).  Roofline fields come from counted work
+(``utils/profiling.count_work``): 2 x MACs of every conv and linear, and every
+kernel's and elementwise pass's operands and output once, counted on the
+forward run module by module (its ``eager``), whose modules a replay does not
+run.
 
 Each section prints one JSON line as it ends; the LAST line is the short
 headline object ``{"metric", "value", "unit", "vs_baseline", ...}``.  A section
@@ -199,14 +202,16 @@ def bench(arch='resnet50', batch=128, dtype='bfloat16', size=224, device=None):
     fwd_w4p = eng4.make_forward(quantized='serving_int8', act_scales=scales4, packed=True)
     rows['w4a4_packed'] = _forward_row(fwd_w4p, sp4, images, dev)
 
-    # ---- roofline from counted work, and the wide float hand-offs
-    rep = roofline_report(model, lambda: fwd_s(sp8, None, images),
+    # ---- roofline from counted work, and the wide float hand-offs: both
+    # watch the forward's modules, which a replayed graph does not run
+    rep = roofline_report(model, lambda: fwd_s.eager(sp8, None, images),
                           calls_per_sec=rows['serving']['images_per_sec'] / batch, int8=True,
                           device=dev)
-    rep4 = roofline_report(model, lambda: fwd_w4p(sp4, None, images),
+    rep4 = roofline_report(model, lambda: fwd_w4p.eager(sp4, None, images),
                            calls_per_sec=rows['w4a4_packed']['images_per_sec'] / batch,
                            int8=True, device=dev)
-    offenders = wide_float_handoffs(model, lambda: fwd_s(sp8, None, images), images.numel())
+    offenders = wide_float_handoffs(model, lambda: fwd_s.eager(sp8, None, images),
+                                    images.numel())
     return {'rows': rows, 'rep': rep, 'rep4': rep4, 'int8_resident_offenders': offenders,
             'engines': (eng8, sp8, scales), 'size': size, 'device': dev}
 
@@ -258,7 +263,7 @@ def _mobilenet_serving(batch, size, device):
         args[0].numel() + mod.weight.numel() + out.numel() * out.element_size()))
         for m in model.modules() if isinstance(m, QConv) and m.groups > 1]
     try:
-        fwd(sp, None, images)
+        fwd.eager(sp, None, images)
     finally:
         for h in hooks:
             h.remove()

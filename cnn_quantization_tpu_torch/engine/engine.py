@@ -12,6 +12,7 @@ weight names plus a ``<module>.w_scale`` entry each.
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -55,6 +56,10 @@ class QuantEngine:
         self.meta = meta
         self.stats = stats
         self.ignore_ids = tuple(ignore_ids)
+        # frozen serving scales on the device by their values, and the
+        # captured serving forwards by input shape and settings (_graph_forward)
+        self._device_scales: dict[tuple, dict] = {}
+        self._graphs: dict[tuple, _ServingGraph] = {}
 
     # ------------------------------------------------------------------
     # Weight quantization pass (reference quantize_model, i_q_m.py:352-393)
@@ -139,7 +144,22 @@ class QuantEngine:
         statistics reduce over the data group, sharded convs and linears
         gather their output channels over the model group.  The packed trunk
         takes no model axis: its int4 codes pack in groups of 256 along K,
-        which a channel slice would cut."""
+        which a channel slice would cut.
+
+        On the card, a serving forward with frozen scales and no mesh runs
+        as a CUDA graph (``_ServingGraph``): its first call at an input
+        shape captures the forward, later calls copy the images into the
+        graph's input and replay it, a fresh copy of the logits each call.
+        A graph is kept on the engine per (images' shape and dtype,
+        ``packed``, the TF32 and cuDNN settings) for the engine's life, with
+        the private memory pool that holds its activations, and replays only
+        for the params dict, the tensor objects it held at capture and the
+        same frozen values; anything else captures anew in its place.  Every
+        other forward runs module by module.  The returned forward's
+        ``eager`` attribute is the same forward run module by module, for
+        callers that watch the Python forward (module hooks, patched kernel
+        wrappers), which a replay does not run; its ``context(stats)`` makes
+        the context each of its forwards runs."""
         serving = quantized == 'serving_int8'
         if serving:
             act_bits, weight_bits = self._serving_bits()
@@ -151,21 +171,53 @@ class QuantEngine:
                                  'axis: the int4 codes pack in groups of 256 along K')
             # frozen scales live on the device from here on: no host-to-device
             # copy per forward
-            scales = {k: as_f32(v, self.device) for k, v in (act_scales or {}).items()}
+            scales = self._scales_on_device(act_scales)
+
+        def context(stats):
+            if serving:
+                return ServingInt8Context(act_scales=scales, act_bits=act_bits,
+                                          weight_bits=weight_bits, packed=packed)
+            if quantized and self.policy.qtype is not None:
+                return QuantizeContext(self.policy, stats=stats,
+                                       ignore_ids=self.ignore_ids, qparams=qparams)
+            return TapContext()
 
         @torch.no_grad()
         def fwd(params, stats, images):
-            if serving:
-                ctx = ServingInt8Context(act_scales=scales, act_bits=act_bits,
-                                         weight_bits=weight_bits, packed=packed)
-            elif quantized and self.policy.qtype is not None:
-                ctx = QuantizeContext(self.policy, stats=stats,
-                                      ignore_ids=self.ignore_ids, qparams=qparams)
-            else:
-                ctx = TapContext()
-            return _run(self.model, params, images, ctx, self.device, mesh)
+            return _run(self.model, params, images, context(stats), self.device, mesh)
 
-        return _forward_span(fwd)
+        eager = _forward_span(fwd)
+        eager.eager, eager.context = eager, context
+        device = self.device
+        if not (serving and act_scales and mesh is None and device.type == 'cuda'):
+            return eager
+        graphs, model = self._graphs, self.model
+
+        def serve(params, x):
+            return _apply(model, params, x, context(None))
+
+        @torch.no_grad()
+        def replayed(params, stats, images):
+            return _graph_forward(graphs, serve, params, scales, images, packed, device)
+
+        graphed = _forward_span(replayed)
+        graphed.eager, graphed.context = eager, context
+        return graphed
+
+    def _scales_on_device(self, act_scales) -> dict:
+        """``act_scales`` as float32 tensors on the device, made once per
+        distinct set of frozen values, so that every ``make_forward`` of one
+        set hands its forwards the same tensors: a captured graph reads them
+        by address.  Scales given as tensors go to the device anew."""
+        if not act_scales:
+            return {}
+        values = _scales_values(act_scales)
+        scales = self._device_scales.get(values) if values is not None else None
+        if scales is None:
+            scales = {k: as_f32(v, self.device) for k, v in act_scales.items()}
+            if values is not None:
+                self._device_scales[values] = scales
+        return scales
 
     @torch.no_grad()
     def prepare_serving_params(self, params_q: Mapping[str, torch.Tensor], *,
@@ -336,8 +388,98 @@ def _run(model, params, images, ctx, device, mesh=None):
         # single-device arithmetic
         ctx.data_group = mesh.data_group if mesh.data > 1 else None
         ctx.model_group = mesh.model_group
-    x = nhwc_to_nchw(images, device)
+    return _apply(model, params, nhwc_to_nchw(images, device), ctx)
+
+
+def _apply(model, params, x, ctx):
+    """(logits, ctx.finalize()) of ``model`` on ``params`` and the NCHW
+    ``x`` already on its device."""
     with global_over(ctx.data_group):
         logits = torch.func.functional_call(model, params, (x, ctx))
     return logits, ctx.finalize()
+
+
+def _scales_values(act_scales) -> tuple | None:
+    """Frozen serving scales as a hashable tuple of (site, shape, float32
+    bytes), the values ``as_f32`` puts on the device; None where a scale is a
+    tensor."""
+    out = []
+    for site, v in act_scales.items():
+        if isinstance(v, torch.Tensor):
+            return None
+        v = np.asarray(v, np.float32)
+        out.append((site, v.shape, v.tobytes()))
+    return tuple(out)
+
+
+def _graph_forward(graphs: dict, serve, params, scales, images, packed, device):
+    """(logits, aux) of the serving forward ``serve(params, x)`` of NHWC
+    ``images``, replayed from the graph ``graphs`` holds for the images'
+    shape and dtype, ``packed`` and the float settings where that graph
+    ``serves`` these params and scales, else from a graph captured now in
+    its place.  The settings that choose the float stem's and classifier's
+    arithmetic (TF32, cuDNN's algorithm choice) are baked in at capture."""
+    key = (images.shape, images.dtype, packed, torch.backends.cudnn.allow_tf32,
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+           torch.backends.cuda.matmul.allow_tf32)
+    graph = graphs.get(key)
+    if graph is None or not graph.serves(params, scales):
+        graphs[key] = graph = _ServingGraph(serve, params, scales, images, device)
+        counters.add('serving_graph.captures')
+    else:
+        nhwc_to_nchw(images, device, out=graph.x)
+        counters.add('serving_graph.replays')
+    return graph.replay()
+
+
+class _ServingGraph:
+    """One frozen serving forward captured into a CUDA graph at one input
+    shape, and everything the graph reads, held so that no address it baked
+    in is freed under it: the params dict and the tensors it held, the
+    device scales, the static NHWC input ``x``.
+
+    The capture follows ``torch.cuda.graph``: one forward run module by
+    module on a side stream (lazy set-up such as cuDNN's plans happens
+    outside the capture), then the capture of a second, which launches
+    nothing.  A replay runs no kernel wrapper, so it adds to
+    ``utils/counters`` what the capture counted; the warm-up's and the
+    capture's counts are taken back, so the capturing call counts one
+    forward, the one its first replay runs.  A capture that fails raises.
+
+    A replay reads the params tensors by address: writing new values into
+    them in place is seen, a tensor whose storage is swapped in place
+    (``set_``) is not."""
+
+    def __init__(self, serve, params, scales, images, device):
+        self.params, self.tensors, self.scales = params, tuple(params.values()), scales
+        self.x = torch.empty(tuple(images.shape), dtype=torch.float32, device=device)
+        x = nhwc_to_nchw(images, device, out=self.x)
+        before = counters.snapshot()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            serve(params, x)
+        torch.cuda.current_stream(device).wait_stream(side)
+        captured = counters.snapshot()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits, self.aux = serve(params, x)
+        self.counts = tuple(counters.since(captured).items())
+        counters.restore(before)
+
+    def serves(self, params, scales) -> bool:
+        """Whether a replay is the forward of ``params`` and ``scales``:
+        the same dict holding the same tensor objects, the same device
+        scales."""
+        return (self.scales is scales and self.params is params
+                and len(params) == len(self.tensors)
+                and all(map(operator.is_, params.values(), self.tensors)))
+
+    def replay(self):
+        """(logits, aux) of the forward of what ``x`` holds, fresh tensors
+        that a later replay does not overwrite."""
+        self.graph.replay()
+        for name, n in self.counts:
+            counters.add(name, n)
+        return self.logits.clone(), {k: v.clone() for k, v in self.aux.items()}
 

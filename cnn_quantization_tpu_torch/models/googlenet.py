@@ -15,6 +15,8 @@ torchvision quirk kept for checkpoint compatibility.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -29,9 +31,17 @@ _TRANSFORM_SHIFT = ((0.485 - 0.5) / 0.5, (0.456 - 0.5) / 0.5, (0.406 - 0.5) / 0.
 def transform_input(x):
     """torchvision's pretrained input renormalization, channel by channel (an
     elementwise affine, so the channels_last layout is kept)."""
-    scale = x.new_tensor(_TRANSFORM_SCALE).view(1, 3, 1, 1)
-    shift = x.new_tensor(_TRANSFORM_SHIFT).view(1, 3, 1, 1)
+    scale, shift = _transform_constants(x.device, x.dtype)
     return x * scale + shift
+
+
+@functools.cache
+def _transform_constants(device, dtype):
+    """``transform_input``'s [1, 3, 1, 1] scale and shift, copied to the
+    device once: a copy from the host inside a forward would stall it, and
+    cannot be captured into a CUDA graph."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device).view(1, 3, 1, 1)
+                 for v in (_TRANSFORM_SCALE, _TRANSFORM_SHIFT))
 
 
 class BasicConv2d(nn.Module):

@@ -12,7 +12,11 @@ Each counter is an integer under a constant name:
   whose epilogue emits codes or adds a residual, ``'*.float_in_bytes'`` the
   bytes of floating activations an integer conv or linear quantizes itself,
   and ``'concat.bytes'`` the bytes a model's channel concatenations write, on
-  either device.
+  either device;
+* ``'serving_graph.{captures,replays}'`` counts the frozen serving forwards
+  captured into a CUDA graph and replayed from one (``engine/engine.py``).
+  A replay runs no wrapper, so it adds the counts its capture moved: a
+  replayed forward counts what an eager one would.
 
 ``add`` is a host add from shapes and flags: nothing reads the device.  A
 reader takes a ``snapshot`` before and ``since`` after, as ``engine.forward``'s
@@ -25,7 +29,8 @@ NAMES = ('fake_quant', 'int8_gemm.wgmma', 'int8_gemm.mma_sync', 'int8_conv.im2co
          'int8_conv.implicit_gemm', 'int8_conv.depthwise', 'int4_gemm.wgmma',
          'int4_gemm.mma_sync', 'int8_gemm.codes_out', 'int8_conv.codes_out',
          'int8_gemm.residual_in', 'int8_conv.residual_in', 'int8_gemm.float_in_bytes',
-         'int8_conv.float_in_bytes', 'concat.bytes', 'quantize_codes.launches', 'stream_copy')
+         'int8_conv.float_in_bytes', 'concat.bytes', 'quantize_codes.launches', 'stream_copy',
+         'serving_graph.captures', 'serving_graph.replays')
 
 # the kernel each launch counter belongs to, in the order ``by_kernel`` reports
 KERNEL_OF = {'fake_quant': 'fake_quant',
@@ -46,6 +51,11 @@ def add(name: str, n: int = 1):
 def snapshot() -> dict:
     """Every counter as it stands."""
     return dict(_counts)
+
+
+def restore(before: dict):
+    """Sets every counter back to what ``snapshot()`` returned as ``before``."""
+    _counts.update(before)
 
 
 def since(before: dict) -> dict:

@@ -39,15 +39,17 @@ def use_full_fp32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def nhwc_to_nchw(images, device) -> torch.Tensor:
+def nhwc_to_nchw(images, device, out: torch.Tensor | None = None) -> torch.Tensor:
     """NHWC images (numpy or tensor, as ``data/synthetic.py`` yields them)
     -> a float32 NCHW view on ``device``.  The permuted view of an NHWC
     buffer is exactly the channels_last memory format, so nothing is copied
     beyond the move to the device.  The move is the ``device.h2d`` span: from
     pinned host memory it returns once the copy is done, which waits for the
-    work queued ahead of it."""
+    work queued ahead of it.  ``out`` (a float32 NHWC tensor on ``device`` of
+    the images' shape) receives the images in place of a new tensor."""
     with spans.span('device.h2d') as s:
-        t = torch.as_tensor(images, dtype=torch.float32).to(device)
+        t = torch.as_tensor(images, dtype=torch.float32)
+        t = t.to(device) if out is None else out.copy_(t)
         s.counts = {'bytes': t.numel() * 4}
     return t.permute(0, 3, 1, 2)
 

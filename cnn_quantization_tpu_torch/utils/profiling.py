@@ -298,15 +298,19 @@ KERNEL_CLASSES = (('int4_gemm', ('Int4A', 'Int4WgEpilogue')), ('int8_gemm', ('De
                   ('elementwise', ('elementwise_kernel',)), ('memcpy', ('Memcpy',)))
 
 
+def kernel_class(name: str) -> str:
+    """The ``KERNEL_CLASSES`` class of the device record ``name``, else
+    ``'other'``."""
+    return next((c for c, needles in KERNEL_CLASSES if any(s in name for s in needles)), 'other')
+
+
 def device_ms_by_class(device_us) -> dict:
     """``device_time_by_kernel``'s records summed by ``KERNEL_CLASSES`` (ms),
     what matches none under ``'other'``."""
     out = {name: 0.0 for name, _ in KERNEL_CLASSES}
     out['other'] = 0.0
     for key, us in device_us.items():
-        name = next((n for n, needles in KERNEL_CLASSES if any(s in key for s in needles)),
-                    'other')
-        out[name] += us / 1e3
+        out[kernel_class(key)] += us / 1e3
     return out
 
 
